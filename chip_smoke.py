@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel and native library from the sources in this
-checkout, holds the kernel bit for bit against its plain PyTorch version,
-drives the port's front-end (PPGExtractor) at EuRoC width (752x480, radtan)
-with the real weights in f32 and in the serving configuration (bf16 nets,
-device-resident descriptors, gated matching), checks batching and a TUM-VI
-fisheye frame, and prints one line per phase. Every phase's failure is fatal.
+Builds the port's CUDA kernels (nearest_binary_packed, pair_probe,
+line_validate; one nvcc each, started together) and native library from the
+sources in this checkout, holds each kernel against its plain PyTorch
+version and times it, drives the port's front-end (PPGExtractor) at EuRoC
+width (752x480, radtan) with the real weights in f32 and in the serving
+configuration (bf16 nets, device-resident descriptors, gated matching),
+requires the main path to launch the fused kernels pair_probe and
+line_validate once a frame, checks batching and a TUM-VI fisheye frame, and
+prints one line per phase. Every phase's failure is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
 lines, one JSON line with the kernel table, and as the last line
@@ -38,6 +41,8 @@ REF_SIZES = (262144, 32768, 131072, 65536)
 # 2*PHASE2_CAP, CAND_CAP*SHORT_S, LONG_CAP*MAX_SEG
 MAIN_SIZES = (250000, 32768, 131072, 65024)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+FUSED = ("pair_probe", "line_validate")
 
 
 class PhaseError(RuntimeError):
@@ -107,6 +112,55 @@ def sampler_bound_ms(n, h, w8):
     return (n * 9 + h * w8) / HBM_BYTES_PER_S * 1e3
 
 
+def bound_ms(n_bytes, n_ops):
+    """(ms, "bytes"|"operations"): the larger of the bytes over the HBM
+    rate and the f32 operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_bound(mask, h, w, kp, ok, sel):
+    """pair_probe's bound on these inputs: the table, keypoints and flags
+    read once, the candidate outputs written once; ~8 f32 operations for
+    each probed pair's midpoint and ~16 for the 20 %/80 % probes of each of
+    the first PHASE2_CAP midpoint survivors."""
+    import torch
+
+    from ppg_slam_tpu_torch.ops import pairs
+    from ppg_slam_tpu_torch.ops.sampling import nearest_binary_packed_ref
+
+    k = kp.shape[0]
+    n_out = sel["ci"].numel()
+    n_bytes = mask.numel() + k * 9 + n_out * 17 + 9
+    ar = torch.arange(k, device=kp.device)
+    okm = ok[:, None] & ok[None, :] & (ar[:, None] < ar[None, :])
+    mid = [pairs._round_clip((c[:, None] * 0.5 + c[None, :] * 0.5)
+                             .reshape(-1), lim)
+           for c, lim in ((kp[:, 1], h - 1), (kp[:, 0], w - 1))]
+    survivors = int((nearest_binary_packed_ref(mask, *mid).reshape(k, k)
+                     & okm).sum())
+    return bound_ms(n_bytes, 8 * int(okm.sum())
+                    + 16 * min(survivors, pairs.PHASE2_CAP))
+
+
+def validate_bound(mask, heat, kp, ref):
+    """line_validate's bound on these inputs: the table, keypoints and
+    per-candidate inputs read once, 16 B of heat taps per bilinear sample
+    this run needs, the outputs written once; ~11 f32 operations per rate
+    sample and ~26 per score sample."""
+    seg = ref["seg"].long()
+    n = seg.numel()
+    rate_samples = int((seg - 1).clamp(min=0).sum())
+    need = (seg >= 2) & (ref["rate"] >= 0.8)
+    score_samples = int(((seg - 1) * need).sum())
+    mids = int((seg == 1).sum())
+    taps = min(16 * (score_samples + mids), heat.numel() * 4)
+    n_bytes = mask.numel() + kp.shape[0] * 8 + n * 21 + taps + n * 5 + 1
+    return bound_ms(n_bytes, 11 * rate_samples + 26 * score_samples
+                    + 20 * mids)
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -138,7 +192,8 @@ class Smoke:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"  {name}: {line.strip()}")
-        kernels.get_library("nearest_binary_packed")
+        for name in kernels.SIGNATURES:
+            kernels.get_library(name)
         native.build()
         check(native.get_lib() is not None, "native graph library not loaded")
         say(f"phase 2 ok: built {sorted(logs)} + libppg_graph in "
@@ -150,9 +205,6 @@ class Smoke:
         import torch
 
         from ppg_slam_tpu_torch.ops import sampling
-        from ppg_slam_tpu_torch.ops.pairs import (candidate_geometry,
-                                                  probe_and_select,
-                                                  validate_candidates)
 
         dev = self.dev
         rng = np.random.RandomState(SEED)
@@ -191,29 +243,136 @@ class Smoke:
                 f"{row['bound_ms'] * 1e3:.3f} us; bit-exact")
         self.sampler_rows = {r["n"]: r for r in rows}
 
-        # the real masks and samples of one extracted frame
+        say(f"phase 3a ok: nearest_binary_packed bit-exact vs plain at N="
+            f"{sorted(self.sampler_rows)}")
+        self.fused_parity()
+        self.fused_timing()
+
+    def fused_cases(self):
+        """(name, heat, kp_un, kp_ok) on the card: the 8 EuRoC frames and a
+        TUM-VI 512x512 frame as the extractor decodes them, and the
+        saturating fixture."""
+        import torch
+
+        from ppg_slam_tpu_torch.testing import saturating_case
+
+        if hasattr(self, "_cases"):
+            return self._cases
+        dev = self.dev
         ex = self.extractor_f32()
-        frame = self.frames[0]
-        heat = torch.from_numpy(ex.device_heat(frame)).to(dev)
-        a = ex._device_outputs(frame)
-        kp_un = torch.from_numpy(a["kp_un"]).to(dev)
-        kp_ok = torch.from_numpy(a["kp_ok"]).to(dev)
-        outs = {}
-        for sampler in ("kernel", "plain"):
-            sel = probe_and_select(heat, kp_un, kp_ok, sampler=sampler)
-            dist, _, _ = candidate_geometry(kp_un, sel["ci"], sel["cj"])
-            good, lscore, overflow = validate_candidates(
-                heat, kp_un, sel["ci"], sel["cj"], dist, sel["cand_valid"],
-                sampler=sampler)
-            outs[sampler] = dict(sel, good=good, lscore=lscore,
-                                 overflow=overflow)
-        for key in outs["kernel"]:
-            check(torch.equal(outs["kernel"][key], outs["plain"][key]),
-                  f"probe/validate output {key} differs kernel vs plain")
-        say(f"phase 3 ok: kernel bit-exact vs plain at N="
-            f"{sorted(self.sampler_rows)} and on a real frame "
-            f"(n_cand {int(outs['kernel']['n_cand'])}, "
-            f"good {int(outs['kernel']['good'].sum())})")
+        cases = []
+        for k, frame in enumerate(self.frames):
+            a = ex._device_outputs(frame)
+            cases.append((f"euroc{k}", ex.device_heat(frame), a["kp_un"],
+                          a["kp_ok"]))
+        ex_t = self.extractor_tumvi()
+        a = ex_t._device_outputs(self.tumvi_frame)
+        cases.append(("tumvi", ex_t.device_heat(self.tumvi_frame),
+                      a["kp_un"], a["kp_ok"]))
+        cases.append(("saturating",) + saturating_case())
+        self._cases = [(name,) + tuple(torch.from_numpy(x).to(dev)
+                                       for x in arrs)
+                       for name, *arrs in cases]
+        return self._cases
+
+    def fused_parity(self):
+        """Both fused kernels against the plain version on every case:
+        bit-equal except lscore (and the internal score), held to
+        LSCORE_MAX_ULP. max_abs_err: the largest |kernel - plain| over
+        every compared output."""
+        import torch
+
+        from ppg_slam_tpu_torch.ops import pairs
+        from ppg_slam_tpu_torch.ops.sampling import pack_binary_mask
+        from ppg_slam_tpu_torch.testing import LSCORE_MAX_ULP, ulp_diff
+
+        def abs_err(a, b):
+            return float((a.double() - b.double()).abs().max())
+
+        self.fused_err = {"pair_probe": 0.0, "line_validate": 0.0}
+        worst_ulp, flips, summary = 0, 0, []
+        for name, heat, kp, ok in self.fused_cases():
+            ref = pairs.probe_and_select(heat, kp, ok, impl="plain")
+            dist, _, _ = pairs.candidate_geometry(kp, ref["ci"], ref["cj"])
+            mask_gt = pack_binary_mask(heat > pairs.LINE_HEATMAP_THRESH)
+            vref = pairs._validate_from_mask(mask_gt, heat, kp, ref["ci"],
+                                             ref["cj"], dist,
+                                             ref["cand_valid"])
+            sel = pairs.pair_probe(heat, kp, ok)
+            got = pairs.line_validate(heat, kp, ref["ci"], ref["cj"], dist,
+                                      ref["cand_valid"])
+            torch.cuda.synchronize()
+            for key, val in ref.items():
+                check(torch.equal(sel[key], val),
+                      f"{name}: pair_probe {key} != plain")
+                self.fused_err["pair_probe"] = max(
+                    self.fused_err["pair_probe"], abs_err(sel[key], val))
+            for key in ("overflow", "rate"):
+                check(torch.equal(got[key], vref[key]),
+                      f"{name}: line_validate {key} != plain")
+            ulp = max(ulp_diff(got["lscore"], vref["lscore"]),
+                      ulp_diff(got["score"], vref["score"]))
+            check(ulp <= LSCORE_MAX_ULP,
+                  f"{name}: lscore {ulp} ulp from plain")
+            n_flip = int((got["good"] != vref["good"]).sum())
+            check(n_flip == 0, f"{name}: good differs in {n_flip} "
+                               "candidates")
+            worst_ulp = max(worst_ulp, ulp)
+            flips += n_flip
+            self.fused_err["line_validate"] = max(
+                [self.fused_err["line_validate"]]
+                + [abs_err(got[key], vref[key])
+                   for key in ("good", "lscore", "overflow", "rate",
+                               "score")])
+            summary.append(f"{name} n_cand {int(ref['n_cand'])} good "
+                           f"{int(vref['good'].sum())}"
+                           f"{' sat' if bool(ref['saturated']) else ''}"
+                           f"{' overflow' if bool(vref['overflow']) else ''}")
+        say(f"phase 3b ok: pair_probe bit-equal and line_validate bit-equal "
+            f"(good, overflow, rate) with lscore within {worst_ulp} ulp "
+            f"(bound {LSCORE_MAX_ULP}), {flips} near-threshold good flips, "
+            f"max_abs_err {self.fused_err}, on {len(summary)} cases: "
+            + "; ".join(summary))
+
+    def fused_timing(self):
+        """Each fused kernel at the main path's shapes (EuRoC frame 0): one
+        launch in a CUDA graph, host-clocked eager calls, the plain version
+        from the same packed mask, and the bound."""
+        from ppg_slam_tpu_torch.ops import pairs
+        from ppg_slam_tpu_torch.ops.sampling import pack_binary_mask
+
+        name, heat, kp, ok = self.fused_cases()[0]
+        h, w = heat.shape
+        mask_ge = pack_binary_mask(heat >= pairs.LINE_HEATMAP_THRESH)
+        mask_gt = pack_binary_mask(heat > pairs.LINE_HEATMAP_THRESH)
+        sel = pairs._probe_from_mask(mask_ge, h, w, kp, ok)
+        dist, _, _ = pairs.candidate_geometry(kp, sel["ci"], sel["cj"])
+        vargs = (heat, kp, sel["ci"], sel["cj"], dist, sel["cand_valid"])
+        vref = pairs._validate_from_mask(mask_gt, *vargs)
+        runs = {
+            "pair_probe": (
+                lambda: pairs._pair_probe_launch(mask_ge, h, w, kp, ok),
+                lambda: pairs._probe_from_mask(mask_ge, h, w, kp, ok),
+                probe_bound(mask_ge, h, w, kp, ok, sel)),
+            "line_validate": (
+                lambda: pairs._line_validate_launch(mask_gt, *vargs),
+                lambda: pairs._validate_from_mask(mask_gt, *vargs),
+                validate_bound(mask_gt, heat, kp, vref)),
+        }
+        self.fused_rows = {}
+        for kname, (kernel, plain, (b_ms, b_by)) in runs.items():
+            row = dict(ms=time_graph(kernel), eager_ms=time_cuda(kernel),
+                       plain_ms=time_graph(plain),
+                       eager_plain_ms=time_cuda(plain), bound_ms=b_ms,
+                       bound_by=b_by)
+            self.fused_rows[kname] = row
+            say(f"  {kname} ({name} 752x480, K {kp.shape[0]}, n_cand "
+                f"{int(sel['n_cand'])}): device {row['ms'] * 1e3:.2f} "
+                f"us/launch; plain {row['plain_ms'] * 1e3:.2f} us; eager "
+                f"issue {row['eager_ms'] * 1e3:.2f} us/call (plain "
+                f"{row['eager_plain_ms'] * 1e3:.2f} us); bound "
+                f"{b_ms * 1e3:.3f} us ({b_by}) [{self.card}]")
+        say("phase 3 ok: kernels match their plain versions and are timed")
 
     # ------------------------------------------------------------------
     def settings_camera(self, name):
@@ -235,27 +394,60 @@ class Smoke:
                                            N_FRAMES, SEED)
         return self._ex32
 
+    def extractor_tumvi(self):
+        if not hasattr(self, "_ex_tumvi"):
+            from ppg_slam_tpu_torch.cli.profile_frontend import \
+                synthetic_frames
+            from ppg_slam_tpu_torch.frontend import PPGExtractor
+
+            cam = self.settings_camera("tumvi.yaml")
+            check(cam.is_fisheye and (cam.width, cam.height) == (512, 512),
+                  "tumvi.yaml is not 512x512 KB8")
+            self._ex_tumvi = PPGExtractor(cam)
+            self.tumvi_frame = synthetic_frames(cam.height, cam.width, 1,
+                                                SEED + 100)[0]
+        return self._ex_tumvi
+
+    def reset_launches(self):
+        from ppg_slam_tpu_torch.ops import pairs, sampling
+
+        sampling.nearest_binary_packed.launches = 0
+        pairs.pair_probe.launches = 0
+        pairs.line_validate.launches = 0
+
+    def read_launches(self, n_frames, what):
+        """The kernels' launch counts since reset_launches(); each fused
+        kernel must have launched once a frame."""
+        from ppg_slam_tpu_torch.ops import pairs, sampling
+
+        got = {"nearest_binary_packed": sampling.nearest_binary_packed.launches,
+               "pair_probe": pairs.pair_probe.launches,
+               "line_validate": pairs.line_validate.launches}
+        for name in FUSED:
+            check(got[name] == n_frames,
+                  f"{what}: {name} launched {got[name]} times in {n_frames} "
+                  "frames, not once a frame")
+        return got
+
     def phase4_main_f32(self):
         import numpy as np
         import torch
 
         from ppg_slam_tpu_torch.frontend import PPGExtractor
-        from ppg_slam_tpu_torch.ops import sampling
 
         ex = self.extractor_f32()
         check((self.cam.width, self.cam.height) == (752, 480),
               "euroc.yaml is not 752x480")
         ex.extract(self.frames[-1])  # warm-up (cuDNN algorithm choice)
         torch.cuda.synchronize()
-        sampling.nearest_binary_packed.launches = 0
+        self.reset_launches()
         feats, times = [], []
         for img in self.frames:
             t0 = time.perf_counter()
             feats.append(ex.extract(img))
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = sampling.nearest_binary_packed.launches
-        self.launches = {"nearest_binary_packed": launches}
-        check(launches > 0, "main path never launched nearest_binary_packed")
+        launches = self.read_launches(len(self.frames), "f32 main path")
+        self.launches = launches
         for k, f in enumerate(feats):
             check(f.n_kp > 50, f"frame {k}: only {f.n_kp} keypoints")
             check(len(f.edges) >= 1, f"frame {k}: no edges")
@@ -297,7 +489,6 @@ class Smoke:
         import torch
 
         from ppg_slam_tpu_torch.frontend import PPGExtractor
-        from ppg_slam_tpu_torch.ops import sampling
         from ppg_slam_tpu_torch.ops.device_match import (MATCH_K, PAIR_CAP,
                                                          bank_update,
                                                          gated_match_packed,
@@ -308,14 +499,13 @@ class Smoke:
                           compute_dtype="bf16")
         ex.extract(self.frames[-1])
         torch.cuda.synchronize()
-        sampling.nearest_binary_packed.launches = 0
+        self.reset_launches()
         feats, times = [], []
         for img in self.frames:
             t0 = time.perf_counter()
             feats.append(ex.extract(img))
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = sampling.nearest_binary_packed.launches
-        check(launches > 0, "serving path never launched the kernel")
+        launches = self.read_launches(len(self.frames), "serving path")
         for k, f in enumerate(feats):
             check(f.desc is None and f.desc_dev is not None,
                   f"frame {k}: descriptors not device-resident")
@@ -394,14 +584,7 @@ class Smoke:
     def phase7_tumvi(self):
         import numpy as np
 
-        from ppg_slam_tpu_torch.cli.profile_frontend import synthetic_frames
-        from ppg_slam_tpu_torch.frontend import PPGExtractor
-
-        cam = self.settings_camera("tumvi.yaml")
-        check(cam.is_fisheye and (cam.width, cam.height) == (512, 512),
-              "tumvi.yaml is not 512x512 KB8")
-        img = synthetic_frames(cam.height, cam.width, 1, SEED + 100)[0]
-        f = PPGExtractor(cam).extract(img)
+        f = self.extractor_tumvi().extract(self.tumvi_frame)
         check(f.n_kp > 50 and len(f.edges) >= 1,
               f"TUM-VI frame: n_kp {f.n_kp}, edges {len(f.edges)}")
         check(np.isfinite(f.kp_pos).all() and np.isfinite(f.edge_score).all(),
@@ -412,20 +595,43 @@ class Smoke:
     # ------------------------------------------------------------------
     def kernel_table(self):
         rows = [self.sampler_rows[n] for n in MAIN_SIZES]
-        return {"kernels": [{
+        table = [{
             "name": "nearest_binary_packed",
             "route": "cuda",
             "source": "ppg_slam_tpu_torch/kernels/nearest_binary_packed.cu",
             "replaces": "ppg_slam_tpu/ops/sampling.py:104",
+            # the main path launches the fused kernels below instead
             "launches": self.launches["nearest_binary_packed"],
+            "on_main_path": False,
             "max_abs_err": self.max_abs_err,
-            # one frame's four launches at the main path's sizes
+            # one frame's four sampler calls at their former main-path sizes
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "bytes",
             "library_ms": None,
-        }]}
+        }]
+        for name in FUSED:
+            row = self.fused_rows[name]
+            table.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"ppg_slam_tpu_torch/kernels/{name}.cu",
+                "replaces": "ppg_slam_tpu/ops/sampling.py:104",
+                "stage": {"pair_probe": "ppg_slam_tpu/ops/pairs.py:67",
+                          "line_validate": "ppg_slam_tpu/ops/pairs.py:197"
+                          }[name],
+                "launches": self.launches[name],
+                "on_main_path": True,
+                "max_abs_err": self.fused_err[name],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": None,
+                "eager_ms": row["eager_ms"],
+            })
+        return {"kernels": table}
 
 
 def main() -> int:

@@ -10,6 +10,8 @@ card's name and power limit:
   * per-stage wall times of one frame, each stage synchronised (upload,
     nets, NMS + undistort, refine + remap, probe, validate, descriptors,
     device->host + host graph finish), medians over the frames;
+  * the device operations (kernels; copies and memsets) that the probe and
+    validate stages issue for one frame, counted by torch.profiler;
   * a torch.profiler window over the same frames: the device's busy share
     (kernel + copy time over wall time) and the kernels by device time.
 Needs a CUDA device.
@@ -102,6 +104,54 @@ def stage_times(ex: PPGExtractor, img: np.ndarray) -> dict:
     return times
 
 
+def _device_ops(prof) -> dict:
+    """Kernels and copies/memsets among a profile's device-side events, and
+    each kernel's launches and device µs by name."""
+    kernels = copies = 0
+    by_name = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copies += ev.count
+        else:
+            kernels += ev.count
+        by_name.append({"name": ev.key[:90], "count": ev.count,
+                        "device_us": getattr(ev, "self_device_time_total",
+                                             0.0)})
+    by_name.sort(key=lambda r: -r["device_us"])
+    return {"kernels": kernels, "copies": copies,
+            "device_us": sum(r["device_us"] for r in by_name),
+            "by_name": by_name}
+
+
+@torch.inference_mode()
+def stage_device_ops(ex: PPGExtractor, img: np.ndarray) -> dict:
+    """Device operations the probe and validate stages issue for one frame
+    (each stage profiled on its own, after the stages before it ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cam = ex.camera
+    junc, heat, _ = ex._nets(ex._images([img]))
+    kp_xy, _, kp_valid = nms_keypoints(junc[0], max_kp=ex.max_kp)
+    kp_un = cam.undistort_points(kp_xy.to(torch.float32))
+    kp_ok = kp_valid & cam.is_in_image(kp_un, border=1.0)
+    heat_r = ex._refined_heat(heat[0])
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        sel = probe_and_select(heat_r, kp_un, kp_ok)
+        torch.cuda.synchronize()
+    out = {"probe": _device_ops(prof)}
+    with profile(activities=acts) as prof:
+        dist, _, _ = candidate_geometry(kp_un, sel["ci"], sel["cj"])
+        validate_candidates(heat_r, kp_un, sel["ci"], sel["cj"], dist,
+                            sel["cand_valid"])
+        torch.cuda.synchronize()
+    out["validate"] = _device_ops(prof)
+    return out
+
+
 def profile_window(ex: PPGExtractor, frames) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,11 +205,13 @@ def main(argv=None) -> int:
         ex.extract(img)
         e2e.append((time.perf_counter() - t0) * 1e3)
     prof = profile_window(ex, frames)
+    ops = stage_device_ops(ex, frames[0])
     result = {"card": card[0] if card else None, "config": args.config,
               "size": [cam.width, cam.height], "frames": args.frames,
               "compute_dtype": args.compute_dtype,
               "desc_transfer": args.desc_transfer,
               "stage_ms_median": stages,
+              "stage_device_ops": ops,
               "extract_ms_median": statistics.median(e2e),
               "profile": prof}
     print(json.dumps(result, indent=1))

@@ -5,9 +5,9 @@ PPGExtractor.cpp:118-147). On the device, per frame:
 
   nets -> junction decode -> NMS (iterated maxpool) -> keypoint undistortion
   -> heatmap tile refine -> undistortion remap (4-tap gather)
-  -> all-pairs 3-probe gate (CUDA packed-mask sampler) -> candidate
-  compaction -> per-candidate geometry -> sampled line validation
-  -> descriptor sampling
+  -> all-pairs 3-probe gate + candidate compaction (fused CUDA kernel
+  pair_probe) -> per-candidate geometry -> sampled line validation (fused
+  CUDA kernel line_validate) -> descriptor sampling
 
 and on the host only the sequential greedy suppression + coline extraction
 (native C++), over candidate geometry recomputed from kp_un. The reference
@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry.cameras import CameraModel
 from ..models import DEFAULT_WEIGHTS, load_net
 from ..ops.descriptors import sample_descriptors
@@ -73,17 +74,6 @@ class FrameFeatures:
         if self.desc is None:
             self.desc = self.desc_fetch()
         return self.desc
-
-
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller names a device; raises where the device
-    named (or defaulted to) is CUDA and no CUDA device is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; ppg_slam_tpu_torch entry points run "
-            "on CUDA unless the caller passes device='cpu'")
-    return dev
 
 
 def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

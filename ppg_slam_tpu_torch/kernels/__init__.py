@@ -3,8 +3,11 @@
 Each `<name>.cu` in this directory is compiled for Hopper
 (`-gencode=arch=compute_90a,code=sm_90a`) into a shared library with a plain
 C interface, `ppg_slam_tpu_torch/_build/lib<name>.so`, and loaded with ctypes.
-A library is rebuilt when its source is newer. A failed build raises: there
-is no fallback to the plain PyTorch versions on CUDA tensors.
+A library is rebuilt when its source, or a header of this directory that the
+source includes (`packed_mask.cuh`, `block_scan.cuh`), is newer. A failed
+build raises: there is no fallback to the plain PyTorch versions on CUDA
+tensors. `-fmad=false` keeps every float multiply and add separately
+rounded, as the plain versions' separate PyTorch ops are.
 
 Launchers take device pointers, sizes and a `cudaStream_t` (PyTorch's current
 stream) and return the `cudaGetLastError()` code of the launch.
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,15 +26,19 @@ from typing import Dict, List, Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # launcher symbol and argtypes of each kernel library
 SIGNATURES = {
     "nearest_binary_packed": ("ppg_nearest_binary_packed",
                               [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "pair_probe": ("ppg_pair_probe", [_P] * 9 + [_I] * 3 + [_P]),
+    "line_validate": ("ppg_line_validate", [_P] * 15 + [_I] * 4 + [_F, _P]),
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -56,10 +64,30 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def sources(name: str) -> List[str]:
+    """Kernel `name`'s source and the headers of this directory that it
+    includes, directly or through another header."""
+    todo, seen = [source_path(name)], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc)
+            if os.path.exists(dep):
+                todo.append(dep)
+    return seen
+
+
 def _stale(name: str) -> bool:
     so = library_path(name)
-    return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(source_path(name)))
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(os.path.getmtime(src) > built for src in sources(name))
 
 
 def _start_build(name: str, extra_flags: Optional[List[str]] = None):

@@ -19,10 +19,14 @@
 // read-only cache.
 //
 // Out-of-range samples (y outside [0, h) or x >> 3 outside [0, w8)) read
-// nothing and give 0.
+// nothing and give 0. The bit lookup is packed_mask.cuh's `packed_bit`, which
+// the fused kernels pair_probe.cu and line_validate.cu share. The main path
+// launches those; this kernel stays as the TPU kernel's direct counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "packed_mask.cuh"
 
 namespace {
 
@@ -32,15 +36,7 @@ __global__ void nearest_binary_packed_kernel(
     int w8) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int y = __ldg(ys + i);
-  const int x = __ldg(xs + i);
-  const int xb = x >> 3;
-  uint8_t bit = 0;
-  if ((unsigned)y < (unsigned)h && (unsigned)xb < (unsigned)w8) {
-    const uint8_t b = __ldg(packed + (size_t)y * w8 + xb);
-    bit = (b >> (x & 7)) & 1;
-  }
-  out[i] = bit;
+  out[i] = ppg::packed_bit(packed, __ldg(ys + i), __ldg(xs + i), h, w8);
 }
 
 }  // namespace

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import resolve_device
+
 BN_EPS = 1e-5  # torch BatchNorm2d default
 
 DEFAULT_WEIGHTS = os.path.join(
@@ -160,8 +162,10 @@ def load_params(path: str = DEFAULT_WEIGHTS) -> Dict[str, torch.Tensor]:
 
 
 def load_net(path: str = DEFAULT_WEIGHTS, compute_dtype: str = "f32",
-             device="cpu") -> PPGNet:
-    """A PPGNet with the weight file's parameters, on `device`."""
+             device=None) -> PPGNet:
+    """A PPGNet with the weight file's parameters, on `device` (default
+    CUDA; raises where no CUDA device is present)."""
+    dev = resolve_device(device)
     net = PPGNet(compute_dtype)
     net.load_state_dict(load_params(path))
-    return net.to(device)
+    return net.to(dev)

@@ -165,7 +165,7 @@ def frame_inputs():
             img[y0 + t // 2, x0 + t] = 0
     img = np.clip(img.astype(np.int32) + rng.randint(-15, 15, (h, w)),
                   0, 255).astype(np.uint8)
-    net = load_net()
+    net = load_net(device="cpu")
     with torch.inference_mode():
         out = net(torch.from_numpy(img).float()[None, None] / 255.0)
     heat = TH.refine_heatmap(out["heat"][0])
@@ -186,14 +186,14 @@ def reference_selection(frame_inputs):
         jnp.asarray(f["kp_ok"]))
 
 
-@pytest.mark.parametrize("sampler", ["kernel", "plain"])
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_probe_and_select_matches_reference(frame_inputs, reference_selection,
-                                            sampler):
+                                            impl):
     f = frame_inputs
     ref = {k: np.asarray(v) for k, v in reference_selection.items()}
     got = TP.probe_and_select(torch.from_numpy(f["heat"]),
                               torch.from_numpy(f["kp_un"]),
-                              torch.from_numpy(f["kp_ok"]), sampler=sampler)
+                              torch.from_numpy(f["kp_ok"]), impl=impl)
     assert ref["n_cand"] > 50
     for key in ("ci", "cj", "cand_valid", "n_cand", "saturated"):
         np.testing.assert_array_equal(got[key].numpy(), ref[key], err_msg=key)

@@ -64,7 +64,7 @@ def test_params_from_jax_round_trip():
 
 def test_forward_matches_jax(jax_params, image):
     ref = ppg_forward(jax_params, jnp.asarray(image[None, :, :, None]))
-    got = _forward(load_net(), image)
+    got = _forward(load_net(device="cpu"), image)
     np.testing.assert_allclose(got["junc_prob"], np.asarray(ref["junc_prob"])[0],
                                atol=1e-5)
     np.testing.assert_allclose(got["heat"], np.asarray(ref["heat"])[0], atol=1e-5)
@@ -73,7 +73,7 @@ def test_forward_matches_jax(jax_params, image):
 
 
 def test_forward_shapes():
-    net = load_net()
+    net = load_net(device="cpu")
     with torch.inference_mode():
         out = net(torch.zeros(1, 1, 480, 752))
     assert out["junc_prob"].shape == (1, 480, 752)
@@ -93,7 +93,7 @@ def test_bf16_forward_matches_jax_bf16(jax_params, image):
     ref = ppg_forward(jax_params, jnp.asarray(image[None, :, :, None]),
                       dtype=jnp.bfloat16)
     ref32 = ppg_forward(jax_params, jnp.asarray(image[None, :, :, None]))
-    net = load_net(compute_dtype="bf16")
+    net = load_net(compute_dtype="bf16", device="cpu")
     assert net.backbone["conv1a"].weight.dtype == torch.bfloat16
     got = _forward(net, image)
     for oracle in (ref, ref32):
@@ -106,3 +106,14 @@ def test_bf16_forward_matches_jax_bf16(jax_params, image):
         scale = np.abs(d_ref).max()
         assert err.max() < 0.04 * scale, err.max() / scale
         assert err.mean() < 0.01 * scale, err.mean() / scale
+
+
+def test_load_net_defaults_to_cuda():
+    """load_net, like PPGExtractor, runs on CUDA unless the caller names a
+    device, and raises where there is none."""
+    if torch.cuda.is_available():
+        assert next(load_net().parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_net()
+    assert next(load_net(device="cpu").parameters()).device.type == "cpu"
