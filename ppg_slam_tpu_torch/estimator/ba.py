@@ -1,0 +1,551 @@
+"""BA entry points: snapshot the world map into a problem, solve, write back.
+
+Port of ppg_slam_tpu/estimator/ba.py's visual and visual-inertial entry
+points. Each gathers the reference's window/fixed-set selection from the
+host map into a BAProblem, runs ba_core.solve_ba on `device` (CUDA unless
+the caller names another) and applies the reference's post-passes (chi2
+observation erasure, MapEdge re-validation, coline outlier culling).
+
+  * local_bundle_adjustment  - OptimizerLBA.cpp:35-329 (LM l0=100, 10 its,
+    Cauchy reproj sqrt(5.991), Huber coline sqrt(7.815))
+  * local_inertial_ba        - OptimizerLBA.cpp:354-846 (<=50-KF temporal
+    window, <=200 single fixed observers, l0=1e-2/1e0, depth-aware chi2)
+  * global_bundle_adjustment - OptimizerGBA.cpp:24-289 (results to the GBA
+    scratch fields when loop_kf != 0)
+
+Problems are solved at their exact sizes: the reference's pow2 shape
+buckets, slot-major layout and mesh sharding are XLA/TPU workarounds.
+full_inertial_ba and its conformal scale search are not ported yet
+(ROADMAP.md).
+
+`pose_cg_iters` and `backtrack` pass through to BAOptions; None keeps the
+reference's backend defaults (PCG(64) and backtracking on CUDA, Cholesky
+without backtracking on the CPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from contextlib import nullcontext
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..utils import profiler
+from ..worldmap.elements import MapPoint
+from ..worldmap.frame import KeyFrame, Rig
+from ..worldmap.map import Map
+from .ba_core import BAOptions, BAProblem, KFStates, empty_problem, solve_ba
+
+CHI2_MONO = 5.991
+
+
+def _sqrt_info_psd(M: np.ndarray) -> np.ndarray:
+    """PSD-projected inverse square root used for whitening (the reference
+    PSD-projects Info = C^-1, G2oEdge.cpp EdgeInertial ctor)."""
+    M = 0.5 * (M + M.T).astype(np.float64)
+    info = np.linalg.inv(M + 1e-14 * np.eye(len(M)))
+    w, V = np.linalg.eigh(0.5 * (info + info.T))
+    w = np.clip(w, 0.0, None)
+    return ((V * np.sqrt(w)) @ V.T).astype(np.float32)
+
+
+def _upload(arrays, device) -> list:
+    """numpy arrays -> tensors on `device`, f32 data in one transfer."""
+    out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    floats = [k for k, a in enumerate(out) if a.dtype == torch.float32]
+    if floats and torch.device(device).type != "cpu":
+        flat = torch.cat([out[k].reshape(-1) for k in floats]).to(device)
+        for k, part in zip(floats, torch.split(
+                flat, [out[k].numel() for k in floats])):
+            out[k] = part.view(out[k].shape)
+    return [a.to(device) for a in out]
+
+
+def _fetch(*tensors) -> list:
+    """Device tensors -> numpy arrays in one transfer (one host sync)."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+    out, k = [], 0
+    for t in tensors:
+        out.append(flat[k:k + t.numel()].reshape(tuple(t.shape)))
+        k += t.numel()
+    return out
+
+
+def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
+                  mp_free, rig: Rig, opts: BAOptions, device,
+                  abort_check=None, chunk: int = 2):
+    """solve_ba on `device` from host (numpy) states, points and problem.
+    The name is the reference's; nothing is padded here.
+
+    abort_check: polled between fixed-size chunks of the damped-GN loop,
+    the reference's force-stop flag inside g2o (OptimizerLBA.cpp:112-113);
+    each chunk resumes the previous one's damping."""
+    host = list(states) + [points, np.asarray(kf_dof), np.asarray(mp_free),
+                           rig.Rcb, rig.tcb] + list(prob)
+    dev = _upload(host, device)
+    st = KFStates(*dev[:5])
+    pts, dof, free, Rcb, tcb = dev[5:10]
+    prob_d = BAProblem(*dev[10:])
+
+    def _solve(s, p, o):
+        return solve_ba(s, p, prob_d, dof, free, Rcb, tcb, rig.cam, o)
+
+    if abort_check is None or opts.iters <= chunk:
+        with profiler.timer("ba.dispatch"):
+            return _solve(st, pts, opts)
+    done = 0
+    lam = opts.lambda0
+    info = None
+    initial = None
+    prev_chi2 = np.inf
+    stalled_chunks = 0
+    syncs = 0
+    while done < opts.iters:
+        st, pts, info = _solve(st, pts, dataclasses.replace(
+            opts, iters=chunk, lambda0=lam))
+        lam = info["lam"]
+        if initial is None:
+            initial = info["chi2_hist"][0]
+        # the inner loop can exit before `chunk` iterations when tol > 0
+        done += info["iters_run"]
+        syncs += info["host_syncs"] + 1
+        chi2 = float(info["final_chi2"])
+        if chi2 < prev_chi2 and chi2 > (1.0 - opts.tol) * prev_chi2:
+            break  # converged: accepted progress with small gain
+        # a chunk with no accepted step is lambda search; allow 8 of them
+        # (16 rejected iterations, the solver's own rejection cap)
+        stalled_chunks = stalled_chunks + 1 if chi2 >= prev_chi2 else 0
+        if stalled_chunks >= 8:
+            break
+        prev_chi2 = min(chi2, prev_chi2)
+        if done < opts.iters and abort_check():
+            info["aborted"] = True
+            break
+    info["iters_run"] = done
+    info["host_syncs"] = syncs
+    info["chi2_hist"] = info["chi2_hist"].clone()
+    info["chi2_hist"][0] = initial
+    return st, pts, info
+
+
+def _body_states(kfs: List[KeyFrame], rig: Rig) -> KFStates:
+    """numpy body states [Rwb, twb, v, bg, ba] of the keyframes."""
+    R = np.stack([kf.imu_rotation() for kf in kfs])
+    t = np.stack([kf.imu_position() for kf in kfs])
+    v = np.stack([kf.velocity for kf in kfs])
+    bg = np.stack([kf.bias[:3] for kf in kfs])
+    ba = np.stack([kf.bias[3:] for kf in kfs])
+    return KFStates(R.astype(np.float32), t.astype(np.float32),
+                    v.astype(np.float32), bg.astype(np.float32),
+                    ba.astype(np.float32))
+
+
+def _write_back_poses(kfs: List[KeyFrame], states: KFStates, rig: Rig,
+                      free: np.ndarray, velocities: bool) -> None:
+    R, t, v, bg, ba = (np.asarray(x) for x in states)
+    for i, kf in enumerate(kfs):
+        if not free[i]:
+            continue
+        Rbw = R[i].T
+        tbw = -Rbw @ t[i]
+        kf.set_pose(rig.Rcb @ Rbw, rig.Rcb @ tbw + rig.tcb)
+        if velocities:
+            kf.velocity = v[i].copy()
+            kf.bias = np.concatenate([bg[i], ba[i]]).astype(np.float32)
+
+
+def _gather_reproj(kfs: List[KeyFrame], kf_index: Dict[int, int],
+                   mps: List[MapPoint], mp_index: Dict[int, int]
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, list]:
+    """Observation triplets (kf_slot, mp_slot, uv) over the local window."""
+    r_kf, r_mp, r_uv, refs = [], [], [], []
+    for mp in mps:
+        j = mp_index[mp.mnId]
+        for kf, idx in mp.observations.items():
+            i = kf_index.get(kf.mnId)
+            if i is None or kf.is_bad():
+                continue
+            r_kf.append(i)
+            r_mp.append(j)
+            r_uv.append(kf.kp[idx])
+            refs.append((kf, mp, idx))
+    if not r_kf:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                np.zeros((0, 2), np.float32), [])
+    return (np.asarray(r_kf, np.int64), np.asarray(r_mp, np.int64),
+            np.asarray(r_uv, np.float32), refs)
+
+
+def _gather_colines(wmap: Map, mp_index: Dict[int, int]
+                    ) -> Tuple[np.ndarray, np.ndarray, list]:
+    idx, w, refs = [], [], []
+    for mc in wmap.map_colines:
+        if mc.is_bad() or not mc.valid:
+            continue
+        a = mp_index.get(mc.mp_s.mnId)
+        b = mp_index.get(mc.mp_m.mnId)
+        c = mp_index.get(mc.mp_e.mnId)
+        if a is None or b is None or c is None:
+            continue
+        idx.append((a, b, c))
+        w.append(mc.ave_weight())
+        refs.append(mc)
+    if not idx:
+        return np.zeros((0, 3), np.int64), np.zeros(0, np.float32), []
+    return np.asarray(idx, np.int64), np.asarray(w, np.float32), refs
+
+
+def _np_problem_template(O: int, C: int, L: int, P: int, B: int) -> dict:
+    """numpy mirror of ba_core.empty_problem for the host assemblers."""
+    return {k: v.numpy() for k, v in
+            empty_problem(O, C, L, P, B)._asdict().items()}
+
+
+def _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w, links=None,
+                 bias_priors=None) -> BAProblem:
+    """A numpy BAProblem holding exactly the given residual families (every
+    row valid). The name is the reference's; nothing is padded here."""
+    n_links = len(links[0]) if links else 0
+    n_bp = len(bias_priors[0]) if bias_priors else 0
+    p = _np_problem_template(len(r_kf), len(c_idx), n_links, 0, n_bp)
+    p.update(r_kf=np.asarray(r_kf, np.int64), r_mp=np.asarray(r_mp, np.int64),
+             r_uv=np.asarray(r_uv, np.float32),
+             c_idx=np.asarray(c_idx, np.int64).reshape(-1, 3),
+             c_w=np.asarray(c_w, np.float32))
+    p["r_valid"][:] = True
+    p["c_valid"][:] = True
+    if links:
+        names = ("i_kf1", "i_kf2", "i_dR", "i_dV", "i_dP", "i_JRg", "i_JVg",
+                 "i_JVa", "i_JPg", "i_JPa", "i_b0", "i_sqi", "i_dt",
+                 "i_huber", "rw_sqig", "rw_sqia")
+        for name, vals in zip(names, links):
+            p[name] = np.asarray(vals, p[name].dtype)
+        p["i_valid"][:] = True
+        p["rw_valid"][:] = True
+    if bias_priors:
+        for name, vals in zip(("bp_kf", "bp_wg", "bp_wa"), bias_priors):
+            p[name] = np.asarray(vals, p[name].dtype)
+        p["bp_valid"][:] = True
+    return BAProblem(**p)
+
+
+def _gather_links(kfs: List[KeyFrame], kf_index: Dict[int, int],
+                  soft_prev_ids: Optional[set] = None,
+                  info_scale_soft: float = 1e-2):
+    """Temporal preintegration links within the window (consecutive KFs).
+
+    Links whose previous KF is in `soft_prev_ids` (the boundary link into the
+    fixed past) get information x 1e-2 + Huber(sqrt 16.92), matching
+    OptimizerLBA.cpp:583-589."""
+    cols = [[] for _ in range(16)]
+    for kf in kfs:
+        prev = kf.prev_kf
+        if prev is None or kf.preintegrated is None:
+            continue
+        i = kf_index.get(prev.mnId)
+        j = kf_index.get(kf.mnId)
+        if i is None or j is None:
+            continue
+        p = kf.preintegrated
+        st = p.state
+        C = np.asarray(st.C, np.float64)
+        sqi = _sqrt_info_psd(C[:9, :9])
+        is_last = soft_prev_ids is not None and prev.mnId in soft_prev_ids
+        if is_last:
+            sqi = sqi * np.sqrt(info_scale_soft)
+        vals = [i, j, np.asarray(st.dR), np.asarray(st.dV), np.asarray(st.dP),
+                np.asarray(st.JRg), np.asarray(st.JVg), np.asarray(st.JVa),
+                np.asarray(st.JPg), np.asarray(st.JPa), p.b.copy(), sqi,
+                np.float32(st.dT), bool(is_last),
+                _sqrt_info_psd(C[9:12, 9:12]),
+                _sqrt_info_psd(C[12:15, 12:15])]
+        for c, v in zip(cols, vals):
+            c.append(v)
+    if not cols[0]:
+        return None
+    return [np.asarray(c) for c in cols]
+
+
+def _apply_outlier_pass(chi2: np.ndarray, depth: np.ndarray, refs,
+                        close_flags: Optional[np.ndarray] = None) -> int:
+    """Erase observations with chi2 > 5.991 (x 1.5 where close_flags) or
+    non-positive depth (the LBA post-pass, OptimizerLBA.cpp:259-, :743-750).
+    chi2/depth are per observation, in `refs` order."""
+    n_bad = 0
+    for k, (kf, mp, idx) in enumerate(refs):
+        th = CHI2_MONO
+        if close_flags is not None and close_flags[k]:
+            th = 1.5 * CHI2_MONO
+        if chi2[k] > th or depth[k] <= 0:
+            mp.erase_observation(kf)
+            n_bad += 1
+    return n_bad
+
+
+def _coline_edge_cleanup(wmap: Map, mps: List[MapPoint]) -> None:
+    """Post-BA edge/coline validity sweep (OptimizerLBA.cpp:306-326)."""
+    seen = set()
+    for mp in mps:
+        if mp.is_bad():
+            continue
+        for me in mp.get_edges():
+            if me.mnId not in seen:
+                seen.add(me.mnId)
+                me.check_valid()
+        mp.remove_coline_outliers()
+
+
+def _summary(info: dict, chi2, n_kf: int, n_mp: int, n_obs: int,
+             n_erased: int = 0) -> dict:
+    """What an entry point returns: the solve's initial and final chi2
+    (`chi2`: the fetched [initial, final] pair), iterations and host syncs
+    (the solve's own and the one result fetch), and the problem's size."""
+    return dict(initial_chi2=float(chi2[0]), final_chi2=float(chi2[1]),
+                iters_run=int(info["iters_run"]),
+                host_syncs=int(info["host_syncs"]) + 1, n_kf=n_kf, n_mp=n_mp,
+                n_obs=n_obs, n_erased=n_erased)
+
+
+def _chi2_pair(info: dict) -> torch.Tensor:
+    """[initial, final] chi2 of a solve, on its device."""
+    return torch.stack([info["chi2_hist"][0], info["final_chi2"]])
+
+
+def _write_back_points(mps: List[MapPoint], pts: np.ndarray) -> None:
+    for j, mp in enumerate(mps):
+        if not mp.is_bad():
+            mp.pos = pts[j].copy()
+            mp.update_normal_and_depth()
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def local_bundle_adjustment(kf: KeyFrame, wmap: Map, iters: int = 10,
+                            abort_check=None, map_lock=None, device=None,
+                            pose_cg_iters=None, backtrack=None
+                            ) -> Optional[dict]:
+    """Visual local BA (OptimizerLBA.cpp:35-329). abort_check: polled
+    between GN chunks (the reference's force-stop flag, :112-113).
+    map_lock: held around the host gather and apply phases only, so the
+    device solve of a threaded local mapper overlaps tracking. If the map's
+    transform_epoch moves mid-solve (IMU init / loop correction rescaled the
+    world) the write-back is dropped entirely. Returns the solve's summary
+    (_summary), or None where there was nothing to solve or the write-back
+    was dropped."""
+    device = resolve_device(device)
+    guard = map_lock if map_lock is not None else nullcontext()
+    rig = wmap.rig
+    with guard, profiler.timer("lba.gather"):
+        epoch0 = wmap.transform_epoch
+        local = [kf] + [k for k in kf.ordered_connected if not k.is_bad()]
+        local_ids = {k.mnId for k in local}
+        mps: List[MapPoint] = []
+        seen = set()
+        for k in local:
+            for mp in k.map_points:
+                if mp is not None and not mp.is_bad() and mp.mnId not in seen:
+                    seen.add(mp.mnId)
+                    mps.append(mp)
+        fixed: List[KeyFrame] = []
+        fixed_ids = set()
+        for mp in mps:
+            for k in mp.observations:
+                if k.mnId not in local_ids and k.mnId not in fixed_ids \
+                        and not k.is_bad():
+                    fixed_ids.add(k.mnId)
+                    fixed.append(k)
+        kfs = local + fixed
+        if len(kfs) < 2 or not mps:
+            return None
+        kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+        mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+        states = _body_states(kfs, rig)
+        points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+        r_kf, r_mp, r_uv, refs = _gather_reproj(kfs, kf_index, mps, mp_index)
+        c_idx, c_w, _ = _gather_colines(wmap, mp_index)
+        prob = _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w)
+        kf_dof = np.zeros((len(kfs), 15), bool)
+        kf_dof[: len(local), :6] = True
+        # the origin KF stays fixed
+        for i, k in enumerate(local):
+            if wmap.kf_origin is not None and k.mnId == wmap.kf_origin.mnId:
+                kf_dof[i] = False
+
+    opts = BAOptions(iters=iters, lambda0=100.0, reproj_kernel="cauchy",
+                     pose_cg_iters=pose_cg_iters, backtrack=backtrack)
+    with profiler.timer("lba.solve"):
+        st, pts, info = _padded_solve(states, points, prob, kf_dof,
+                                      np.ones(len(mps), bool), rig, opts,
+                                      device, abort_check=abort_check)
+    with profiler.timer("lba.apply"):
+        # one transfer for everything the host post-pass reads, fetched
+        # outside the map lock: it is the long device wait
+        *st_np, pts_np, chi2, depth, chi2s = _fetch(
+            *st, pts, info["obs_chi2"], info["obs_depth"], _chi2_pair(info))
+        with (map_lock if map_lock is not None else nullcontext()):
+            if wmap.transform_epoch != epoch0:
+                profiler.count("lba_dropped_stale")
+                return None
+            n_bad = _apply_outlier_pass(chi2, depth, refs)
+            _write_back_poses(kfs, KFStates(*st_np), rig, kf_dof.any(axis=1),
+                              velocities=False)
+            _write_back_points(mps, pts_np)
+            _coline_edge_cleanup(wmap, mps)
+            wmap.info_map_change()
+    return _summary(info, chi2s, len(kfs), len(mps), len(refs), n_bad)
+
+
+def local_inertial_ba(kf: KeyFrame, wmap: Map, b_large: bool = False,
+                      b_rec_init: bool = False, iters: int = 10,
+                      abort_check=None, map_lock=None, device=None,
+                      pose_cg_iters=None, backtrack=None) -> Optional[dict]:
+    """Visual-inertial local BA (OptimizerLBA.cpp:354-846). map_lock: see
+    local_bundle_adjustment - gather/apply locked, device solve unlocked,
+    write-back dropped on a mid-solve whole-map transform. Returns as
+    local_bundle_adjustment does."""
+    device = resolve_device(device)
+    guard = map_lock if map_lock is not None else nullcontext()
+    rig = wmap.rig
+    with guard, profiler.timer("liba.gather"):
+        epoch0 = wmap.transform_epoch
+        max_opt = 50
+        nd = min(wmap.n_keyframes() - 2, max_opt)
+        window: List[KeyFrame] = [kf]
+        while len(window) < nd and window[-1].prev_kf is not None:
+            window.append(window[-1].prev_kf)
+        local_ids = {k.mnId for k in window}
+
+        mps: List[MapPoint] = []
+        seen = set()
+        for k in window:
+            for mp in k.map_points:
+                if mp is not None and not mp.is_bad() \
+                        and mp.mnId not in seen:
+                    seen.add(mp.mnId)
+                    mps.append(mp)
+
+        fixed: List[KeyFrame] = []
+        fixed_ids = set()
+        if window[-1].prev_kf is not None:
+            fixed.append(window[-1].prev_kf)
+            fixed_ids.add(window[-1].prev_kf.mnId)
+        else:
+            # no previous: fix the oldest window KF itself
+            oldest = window.pop()
+            local_ids.discard(oldest.mnId)
+            fixed.append(oldest)
+            fixed_ids.add(oldest.mnId)
+        for mp in mps:  # ONE fixed observer per point (reference quirk)
+            if len(fixed) >= 200:
+                break
+            for k in mp.observations:
+                if k.mnId not in local_ids and k.mnId not in fixed_ids \
+                        and not k.is_bad():
+                    fixed_ids.add(k.mnId)
+                    fixed.append(k)
+                    break
+        kfs = window + fixed
+        if not mps or len(kfs) < 2:
+            return None
+        kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+        mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+
+        states = _body_states(kfs, rig)
+        points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+        r_kf, r_mp, r_uv, refs = _gather_reproj(kfs, kf_index, mps, mp_index)
+        c_idx, c_w, _ = _gather_colines(wmap, mp_index)
+        # temporal links over window + the link into the fixed previous KF
+        soft = {fixed[0].mnId} if fixed else set()
+        links = _gather_links(window, kf_index, soft_prev_ids=soft)
+        prob = _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w, links=links)
+        kf_dof = np.zeros((len(kfs), 15), bool)
+        kf_dof[: len(window), :] = True
+
+    opts = BAOptions(iters=iters, lambda0=(1e-2 if b_large else 1e0),
+                     reproj_kernel="cauchy", pose_cg_iters=pose_cg_iters,
+                     backtrack=backtrack)
+    with profiler.timer("liba.solve"):
+        st, pts, info = _padded_solve(states, points, prob, kf_dof,
+                                      np.ones(len(mps), bool), rig, opts,
+                                      device, abort_check=abort_check)
+    with profiler.timer("liba.apply"):
+        *st_np, pts_np, chi2, depth, chi2s = _fetch(
+            *st, pts, info["obs_chi2"], info["obs_depth"], _chi2_pair(info))
+        with (map_lock if map_lock is not None else nullcontext()):
+            if wmap.transform_epoch != epoch0:
+                profiler.count("lba_dropped_stale")
+                return None
+            # depth-aware chi2 (close = tracked depth < 10, :743-750), with
+            # the optimized depth as the closeness proxy
+            n_bad = _apply_outlier_pass(chi2, depth, refs,
+                                        close_flags=depth < 10.0)
+            _write_back_poses(kfs, KFStates(*st_np), rig, kf_dof.any(axis=1),
+                              velocities=True)
+            _write_back_points(mps, pts_np)
+            _coline_edge_cleanup(wmap, mps)
+            wmap.info_map_change()
+    return _summary(info, chi2s, len(kfs), len(mps), len(refs), n_bad)
+
+
+def global_bundle_adjustment(wmap: Map, iters: int = 20, loop_kf: int = 0,
+                             robust: bool = True, abort_check=None,
+                             map_lock=None, device=None, pose_cg_iters=None,
+                             backtrack=None) -> Optional[dict]:
+    """Visual-only GBA (OptimizerGBA.cpp:24-289). map_lock (if given) guards
+    the host gather/write phases so a background-thread GBA (the reference's
+    RunGlobalBundleAdjustment thread, LoopClosing.cpp:1050) does not race
+    tracking; the device solve runs unlocked. Returns the solve's summary
+    (_summary; GBA erases no observation), or None where there was nothing
+    to solve."""
+    device = resolve_device(device)
+    guard = map_lock if map_lock is not None else nullcontext()
+    rig = wmap.rig
+    with guard:
+        kfs = wmap.all_keyframes()
+        mps = wmap.all_map_points()
+        if len(kfs) < 2 or not mps:
+            return None
+        kfs.sort(key=lambda k: k.mnId)
+        kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+        mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+        states = _body_states(kfs, rig)
+        points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+        r_kf, r_mp, r_uv, _ = _gather_reproj(kfs, kf_index, mps, mp_index)
+        c_idx, c_w, _ = _gather_colines(wmap, mp_index)
+        prob = _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w)
+
+    kf_dof = np.zeros((len(kfs), 15), bool)
+    kf_dof[:, :6] = True
+    kf_dof[0] = False  # origin fixed
+    opts = BAOptions(iters=iters, lambda0=1e-5,
+                     reproj_kernel="cauchy" if robust else "none",
+                     pose_cg_iters=pose_cg_iters, backtrack=backtrack)
+    st, pts, info = _padded_solve(states, points, prob, kf_dof,
+                                  np.ones(len(mps), bool), rig, opts, device,
+                                  abort_check=abort_check)
+    R, t, v, bg, ba, pts_np, chi2s = _fetch(*st, pts, _chi2_pair(info))
+    with guard:
+        if loop_kf == 0:
+            _write_back_poses(kfs, KFStates(R, t, v, bg, ba), rig,
+                              np.ones(len(kfs), bool), velocities=False)
+            for j, mp in enumerate(mps):
+                mp.pos = pts_np[j].copy()
+                mp.update_normal_and_depth()
+            _coline_edge_cleanup(wmap, mps)
+        else:
+            for i, kf in enumerate(kfs):
+                Rbw = R[i].T
+                tbw = -Rbw @ t[i]
+                kf.gba_Rcw = rig.Rcb @ Rbw
+                kf.gba_tcw = rig.Rcb @ tbw + rig.tcb
+                kf.ba_global_for_kf = loop_kf
+            for j, mp in enumerate(mps):
+                mp.gba_pos = pts_np[j].copy()
+                mp.ba_global_for_kf = loop_kf
+        wmap.info_map_change()
+    return _summary(info, chi2s, len(kfs), len(mps), len(r_kf))

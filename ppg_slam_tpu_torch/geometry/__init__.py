@@ -1,3 +1,7 @@
-from .cameras import CAM_FISHEYE, CAM_PINHOLE, CameraModel
+from . import so3
+from .cameras import (CAM_FISHEYE, CAM_PINHOLE, GRID_COLS, GRID_ROWS,
+                      CameraModel, epipolar_sq_dist)
+from .se3 import SE3
 
-__all__ = ["CAM_FISHEYE", "CAM_PINHOLE", "CameraModel"]
+__all__ = ["so3", "SE3", "CameraModel", "CAM_PINHOLE", "CAM_FISHEYE",
+           "GRID_COLS", "GRID_ROWS", "epipolar_sq_dist"]

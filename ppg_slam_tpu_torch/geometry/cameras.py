@@ -25,6 +25,10 @@ import torch
 CAM_PINHOLE = 0
 CAM_FISHEYE = 1
 
+# Feature-grid constants (reference GeometricCamera.h:42-97: 64x48 cell grid)
+GRID_COLS = 64
+GRID_ROWS = 48
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraModel:
@@ -66,6 +70,62 @@ class CameraModel:
             y = (uv[..., 1] - self.cy) * (1.0 / self.fy)
             return torch.stack([x, y, torch.ones_like(x)], dim=-1)
         return kb8_unproject(uv, self.fx, self.fy, self.cx, self.cy, self.dist)
+
+    # numpy twins for the host bookkeeping (frustum checks, triangulation),
+    # which calls them thousands of times on small arrays
+    def project_np(self, xyz: np.ndarray) -> np.ndarray:
+        """(..., 3) camera-frame points -> (..., 2) pixels (numpy)."""
+        xyz = np.asarray(xyz, np.float32)
+        if self.kind == CAM_PINHOLE:
+            z = xyz[..., 2]
+            return np.stack([self.fx * xyz[..., 0] / z + self.cx,
+                             self.fy * xyz[..., 1] / z + self.cy], axis=-1)
+        k1, k2, k3, k4 = self.dist
+        x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+        r = np.sqrt(x * x + y * y)
+        theta = np.arctan2(r, z)
+        t2 = theta * theta
+        rad = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+        rs = np.where(r > 1e-12, r, 1.0)
+        return np.stack([self.fx * rad * x / rs + self.cx,
+                         self.fy * rad * y / rs + self.cy], axis=-1)
+
+    def unproject_np(self, uv: np.ndarray) -> np.ndarray:
+        """(..., 2) pixels -> (..., 3) unit-depth bearings (numpy)."""
+        uv = np.asarray(uv, np.float32)
+        px = (uv[..., 0] - self.cx) / self.fx
+        py = (uv[..., 1] - self.cy) / self.fy
+        if self.kind == CAM_PINHOLE:
+            return np.stack([px, py, np.ones_like(px)], axis=-1)
+        k1, k2, k3, k4 = self.dist
+        theta_d = np.sqrt(px * px + py * py)
+        theta = np.clip(theta_d, -np.pi / 2, np.pi / 2)
+        for _ in range(10):
+            t2 = theta * theta
+            t4 = t2 * t2
+            t6 = t4 * t2
+            t8 = t4 * t4
+            num = theta * (1 + k1 * t2 + k2 * t4 + k3 * t6 + k4 * t8) - \
+                np.clip(theta_d, -np.pi / 2, np.pi / 2)
+            den = 1 + 3 * k1 * t2 + 5 * k2 * t4 + 7 * k3 * t6 + 9 * k4 * t8
+            theta = theta - num / den
+        scale = np.where(theta_d > 1e-8,
+                         np.tan(theta) / np.where(theta_d > 1e-8, theta_d, 1.0),
+                         1.0)
+        return np.stack([px * scale, py * scale, np.ones_like(px)], axis=-1)
+
+    def project_jac(self, xyz: torch.Tensor) -> torch.Tensor:
+        """(..., 3) -> (..., 2, 3) d(uv)/d(xyz), analytic."""
+        if self.kind == CAM_PINHOLE:
+            x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+            zi = 1.0 / z
+            zi2 = zi * zi
+            zero = torch.zeros_like(z)
+            row0 = torch.stack([self.fx * zi, zero, -self.fx * x * zi2], dim=-1)
+            row1 = torch.stack([zero, self.fy * zi, -self.fy * y * zi2], dim=-1)
+            return torch.stack([row0, row1], dim=-2)
+        return kb8_project_jac(xyz, self.fx, self.fy, self.cx, self.cy,
+                               self.dist)
 
     def undistort_points(self, uv: torch.Tensor) -> torch.Tensor:
         """Distorted pixels -> undistorted pixels under the same K
@@ -163,3 +223,48 @@ def kb8_unproject(uv, fx, fy, cx, cy, dist, iters: int = 10):
     scale = torch.where(big, torch.tan(theta) / torch.where(big, theta_d, 1.0),
                         1.0)
     return torch.stack([px * scale, py * scale, torch.ones_like(px)], dim=-1)
+
+
+def kb8_project_jac(xyz, fx, fy, cx, cy, dist):
+    """Analytic 2x3 Jacobian (KannalaBrandt8.cpp:95-131)."""
+    k1, k2, k3, k4 = dist
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    x2, y2, z2 = x * x, y * y, z * z
+    r2 = x2 + y2
+    r = torch.sqrt(r2)
+    r3 = r2 * r
+    theta = torch.atan2(r, z)
+    t2 = theta * theta
+    t4 = t2 * t2
+    t6 = t4 * t2
+    t8 = t4 * t4
+    f = theta * (1 + k1 * t2 + k2 * t4 + k3 * t6 + k4 * t8)
+    fd = 1 + 3 * k1 * t2 + 5 * k2 * t4 + 7 * k3 * t6 + 9 * k4 * t8
+    denom = r2 * (r2 + z2)
+    j00 = fx * (fd * z * x2 / denom + f * y2 / r3)
+    j01 = fx * (fd * z * y * x / denom - f * y * x / r3)
+    j02 = -fx * fd * x / (r2 + z2)
+    j10 = fy * (fd * z * y * x / denom - f * y * x / r3)
+    j11 = fy * (fd * z * y2 / denom + f * x2 / r3)
+    j12 = -fy * fd * y / (r2 + z2)
+    row0 = torch.stack([j00, j01, j02], dim=-1)
+    row1 = torch.stack([j10, j11, j12], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def epipolar_sq_dist(kp1_uv, kp2_uv, R12, t12, K):
+    """Squared point-to-epipolar-line distance (Pinhole.cpp:101-121).
+
+    kp*_uv: (..., 2); returns (...,) squared pixel distance; threshold 3.84.
+    """
+    from . import so3
+
+    Kinv = torch.linalg.inv(K)
+    F12 = Kinv.T @ so3.hat(t12) @ R12 @ Kinv
+    a = kp1_uv[..., 0] * F12[0, 0] + kp1_uv[..., 1] * F12[1, 0] + F12[2, 0]
+    b = kp1_uv[..., 0] * F12[0, 1] + kp1_uv[..., 1] * F12[1, 1] + F12[2, 1]
+    c = kp1_uv[..., 0] * F12[0, 2] + kp1_uv[..., 1] * F12[1, 2] + F12[2, 2]
+    num = a * kp2_uv[..., 0] + b * kp2_uv[..., 1] + c
+    den = a * a + b * b
+    ok = den > 0
+    return torch.where(ok, num * num / torch.where(ok, den, 1.0), torch.inf)

@@ -38,3 +38,472 @@ def saturating_case():
     b = np.stack([rng.uniform(230, 300, n), rng.uniform(160, 225, n)], 1)
     kp = np.where(near[:, None], a, b).astype(np.float32)
     return np.full((240, 320), 0.9, np.float32), kp, np.ones(n, bool)
+
+
+# ---------------------------------------------------------------------------
+# synthetic world and sequence (port-side copies of the repository's test
+# harness: a 3-D scene of points and colinear triplets rendered into
+# FrameFeatures without the nets, and a mono-inertial trajectory whose IMU
+# samples follow the discrete model the preintegration assumes)
+# ---------------------------------------------------------------------------
+
+def _cam(**kw):
+    from .geometry.cameras import CAM_PINHOLE, CameraModel
+
+    return CameraModel(kind=CAM_PINHOLE, dist=(0.0, 0.0, 0.0, 0.0), **kw)
+
+
+CAM = _cam(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640, height=480)
+# configs/euroc.yaml's pinhole; rendered keypoints are already undistorted
+EUROC_CAM = _cam(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752,
+                 height=480)
+
+
+class SyntheticScene:
+    """Points, line segments and colinear triplets (pivot = mid, a, b) with
+    stable per-landmark descriptors."""
+
+    def __init__(self, n_points=160, seed=7, cam=CAM,
+                 extent=((-3, 3), (-2, 2), (4, 9))):
+        rng = np.random.RandomState(seed)
+        self.cam = cam
+        self.rng = rng
+        (x0, x1), (y0, y1), (z0, z1) = extent
+        pts = [np.stack([rng.uniform(x0, x1, n_points // 2),
+                         rng.uniform(y0, y1, n_points // 2),
+                         rng.uniform(z0, z1, n_points // 2)], 1)]
+        self.triplets = []
+        self.segments = []
+        base = n_points // 2
+        line_pts = []
+        for k in range(n_points // 6):
+            a = np.array([rng.uniform(x0, x1), rng.uniform(y0, y1),
+                          rng.uniform(z0, z1)])
+            d = rng.randn(3)
+            d /= np.linalg.norm(d)
+            b = a + d * rng.uniform(0.8, 2.0)
+            m = 0.5 * (a + b)
+            i0 = base + 3 * k
+            line_pts += [a, m, b]
+            self.triplets.append((i0 + 1, i0, i0 + 2))
+            self.segments += [(i0, i0 + 1), (i0 + 1, i0 + 2)]
+        pts.append(np.stack(line_pts))
+        self.points = np.concatenate(pts).astype(np.float32)
+        self.n = len(self.points)
+        d = rng.randn(self.n, 256).astype(np.float32)
+        self.descs = d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    def pose(self, k: int, n_frames: int = 40, radius: float = 0.8):
+        """Camera k on a smooth forward+lateral path looking at the scene."""
+        from .geometry import so3
+
+        t_wc = np.array([radius * np.sin(0.15 * k), 0.1 * np.sin(0.3 * k),
+                         0.06 * k], np.float32)
+        ang = np.array([0.02 * np.sin(0.2 * k), 0.05 * np.sin(0.1 * k),
+                        0.01 * np.cos(0.25 * k)], np.float32)
+        Rcw = so3.exp(ang).astype(np.float32).T
+        return Rcw, (-Rcw @ t_wc).astype(np.float32)
+
+    def render(self, Rcw: np.ndarray, tcw: np.ndarray, noise: float = 0.0,
+               desc_noise: float = 0.0, subset=None) -> tuple:
+        """Returns (FrameFeatures, visible_global_ids). subset: an optional
+        boolean mask over the scene's points; the others stay unseen."""
+        from .frontend.extractor import FrameFeatures
+
+        Xc = self.points @ Rcw.T + tcw
+        vis = Xc[:, 2] > 0.3
+        uv = self.cam.project_np(Xc)
+        if noise > 0:
+            uv = uv + self.rng.randn(*uv.shape).astype(np.float32) * noise
+        inb = ((uv[:, 0] >= 8) & (uv[:, 0] < self.cam.width - 8)
+               & (uv[:, 1] >= 8) & (uv[:, 1] < self.cam.height - 8))
+        if subset is not None:
+            vis = vis & subset
+        ids = np.nonzero(vis & inb)[0]
+        uv_v = uv[ids].astype(np.float32)
+        descs = self.descs[ids].copy()
+        if desc_noise > 0:
+            descs += self.rng.randn(*descs.shape).astype(np.float32) \
+                * desc_noise
+            descs /= np.linalg.norm(descs, axis=1, keepdims=True)
+        gid_to_local = {g: i for i, g in enumerate(ids)}
+        edges = [(gid_to_local[a], gid_to_local[b]) for a, b in self.segments
+                 if a in gid_to_local and b in gid_to_local]
+        edges_np = (np.asarray(edges, np.int32) if edges
+                    else np.zeros((0, 2), np.int32))
+        colines = [(gid_to_local[p], gid_to_local[a], gid_to_local[b])
+                   for p, a, b in self.triplets
+                   if p in gid_to_local and a in gid_to_local
+                   and b in gid_to_local]
+        col_np = (np.asarray(colines, np.int32) if colines
+                  else np.zeros((0, 3), np.int32))
+        connected = [[] for _ in range(len(ids))]
+        for eid, (a, b) in enumerate(edges):
+            connected[a].append(eid)
+            connected[b].append(eid)
+        feats = FrameFeatures(
+            kp_pos=uv_v, kp_pos_un=uv_v.copy(),
+            kp_score=np.ones(len(ids), np.float32),
+            kp_out=np.zeros(len(ids), bool), edges=edges_np,
+            edge_score=np.full(len(edges_np), 0.5, np.float32),
+            colines=col_np, connected=connected, desc=descs)
+        return feats, ids
+
+
+class SyntheticSequence:
+    """Body motion simulated at IMU rate with the discrete model the
+    preintegration assumes (so the preintegrated deltas are consistent with
+    the frame poses); identity camera-body extrinsics."""
+
+    def __init__(self, n_frames=120, fps=20.0, imu_hz=200.0, seed=3,
+                 noise_px=0.0, desc_noise=0.02, scene=None, accel_fn=None,
+                 v0=(0.25, 0.0, 0.05), gyro_fn=None, imu_noise=(0.0, 0.0)):
+        from .geometry import so3
+        from .imu import GRAVITY_VALUE
+
+        self.scene = scene or SyntheticScene(
+            n_points=480, seed=seed, extent=((-3, 9), (-2, 4), (4, 10)))
+        self.fps = fps
+        self.noise_px = noise_px
+        self.desc_noise = desc_noise
+        g = np.float32([0, 0, -GRAVITY_VALUE])
+        dt = 1.0 / imu_hz
+        steps_per_frame = int(round(imu_hz / fps))
+        R = np.eye(3, dtype=np.float32)
+        t = np.zeros(3, np.float32)
+        v = np.float32(v0)
+        imu_rng = np.random.RandomState(seed + 991)
+        self.frame_poses = [(R.copy(), t.copy())]   # Twb (R=Rwb, t=twb)
+        self.frame_vels = [v.copy()]
+        self.frame_times = [0.0]
+        self.imu = []  # rows (ax..az, wx..wz, t)
+        if accel_fn is None:
+            accel_fn = lambda tm: np.float32([
+                0.8 * np.sin(1.1 * tm), 0.5 * np.cos(0.9 * tm),
+                0.35 * np.sin(1.4 * tm)])
+        if gyro_fn is None:
+            gyro_fn = lambda tm: np.float32([
+                0.10 * np.sin(0.6 * tm), 0.22 * np.cos(0.5 * tm),
+                0.15 * np.sin(0.8 * tm)])
+        k = 0
+        for _ in range(1, n_frames):
+            for _ in range(steps_per_frame):
+                tm = k * dt
+                a_w = accel_fn(tm)
+                w_b = gyro_fn(tm)
+                a_body = (R.T @ (a_w - g)).astype(np.float32)
+                if imu_noise[0] or imu_noise[1]:
+                    a_meas = a_body + imu_rng.randn(3).astype(np.float32) \
+                        * imu_noise[1]
+                    w_meas = w_b + imu_rng.randn(3).astype(np.float32) \
+                        * imu_noise[0]
+                else:
+                    a_meas, w_meas = a_body, w_b
+                self.imu.append(np.concatenate(
+                    [a_meas, w_meas, [tm + dt]]).astype(np.float64))
+                t = t + v * dt + 0.5 * a_w * dt * dt
+                v = v + a_w * dt
+                R = R @ so3.exp(np.float32(w_b * dt)).astype(np.float32)
+                k += 1
+            self.frame_poses.append((R.copy(), t.copy()))
+            self.frame_vels.append(v.copy())
+            self.frame_times.append(k * dt)
+        self.imu = np.stack(self.imu)
+        self.n_frames = n_frames
+
+    def frame_tcw(self, i):
+        Rwb, twb = self.frame_poses[i]
+        Rcw = Rwb.T  # identity extrinsics: camera == body
+        return Rcw, (-Rcw @ twb).astype(np.float32)
+
+    def imu_between(self, t0, t1):
+        m = self.imu
+        return m[(m[:, 6] > t0) & (m[:, 6] <= t1 + 1e-9)]
+
+
+def sqrtm_psd_inv(M: np.ndarray) -> np.ndarray:
+    """sqrt of the PSD-projected inverse (the tracker's whitening factor)."""
+    M = 0.5 * (M + M.T)
+    info = np.linalg.inv(M + 1e-14 * np.eye(len(M)))
+    w, V = np.linalg.eigh(0.5 * (info + info.T))
+    w = np.clip(w, 0, None)
+    return ((V * np.sqrt(w)) @ V.T).astype(np.float32)
+
+
+def preint_data(p, device):
+    """PreintData of a Preintegrated on `device`, built as the tracker
+    builds it for pose_inertial_optimization."""
+    from .estimator import PreintData
+
+    st = p.state
+    C = np.asarray(st.C, np.float64)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return PreintData(
+        dR=f(st.dR), dV=f(st.dV), dP=f(st.dP), JRg=f(st.JRg), JVg=f(st.JVg),
+        JVa=f(st.JVa), JPg=f(st.JPg), JPa=f(st.JPa), b0=f(p.b),
+        sqi=f(sqrtm_psd_inv(C[:9, :9])), sqig=f(sqrtm_psd_inv(C[9:12, 9:12])),
+        sqia=f(sqrtm_psd_inv(C[12:15, 12:15])), dt=f(np.float32(st.dT)))
+
+
+# ---------------------------------------------------------------------------
+# world maps built from rendered views (shared by the port's tests, which
+# build the same map in both packages, and by chip_smoke.py's estimator
+# phase). `pkg` is any namespace with the attributes `wm` (a worldmap
+# module), `Features` (a FrameFeatures class), `cam` and `Preintegrated` (a
+# callable (bias, nga, nga_walk) -> Preintegrated).
+# ---------------------------------------------------------------------------
+
+def feature_kwargs(feats) -> dict:
+    """FrameFeatures -> the keyword arguments that rebuild it in either
+    package."""
+    return {k: getattr(feats, k) for k in
+            ("kp_pos", "kp_pos_un", "kp_score", "kp_out", "edges",
+             "edge_score", "colines", "connected", "desc")}
+
+
+def render_views(scene, poses, noise=0.0, subsets=None):
+    """[(feature kwargs, visible global ids)] of the camera poses (each
+    seeing only its subset of the scene's points, where given)."""
+    out = []
+    for k, (Rcw, tcw) in enumerate(poses):
+        feats, ids = scene.render(Rcw, tcw, noise=noise,
+                                  subset=None if subsets is None
+                                  else subsets[k])
+        out.append((feature_kwargs(feats), ids))
+    return out
+
+
+def perturbation(n_kf, n_pts, noise_pose=0.02, noise_pt=0.03, seed=61):
+    """(dR list, dt list, point offsets): the error put on KFs 2.. and on
+    every point before a BA."""
+    from .geometry import so3
+
+    rng = np.random.RandomState(seed)
+    dRs, dts = [], []
+    for _ in range(n_kf - 2):
+        dRs.append(so3.exp(rng.randn(3).astype(np.float32) * noise_pose))
+        dts.append(rng.randn(3).astype(np.float32) * noise_pose * 2)
+    return dRs, dts, rng.randn(n_pts, 3).astype(np.float32) * noise_pt
+
+
+def imu_links(seq, times):
+    """(acc, gyr, dt) of the IMU samples between consecutive `times`."""
+    links = []
+    for a, b in zip(times[:-1], times[1:]):
+        m = seq.imu_between(a, b)
+        links.append((m[:, :3].astype(np.float32),
+                      m[:, 3:6].astype(np.float32),
+                      np.diff(np.concatenate([[a], m[:, 6]])).astype(
+                          np.float32)))
+    return links
+
+
+def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
+              colines=False):
+    """A map of keyframes at `poses` observing `points` through `views`,
+    with the perturbation `pert` applied to KFs 2.. and all points.
+
+    imu: (per-link measurements, KF velocities), where a link's
+    measurements are (acc, gyr, dt) to integrate or an integrated
+    Preintegrated to copy; keep: per-KF
+    boolean masks over the view's keypoints that become observations (all
+    when None); colines: create the map colines of every KF's colinear
+    triplets (Map.create_map_colines). Returns (map, keyframes, {global
+    id: MapPoint})."""
+    rig = pkg.wm.Rig(pkg.cam)
+    wm = pkg.wm.Map(rig)
+    kfs, id_to_mp, prev = [], {}, None
+    for k, ((Rcw, tcw), (feats, ids)) in enumerate(zip(poses, views)):
+        f = pkg.wm.Frame(pkg.Features(**feats), timestamp=times[k], rig=rig)
+        f.set_pose(Rcw, tcw)
+        kf = pkg.wm.KeyFrame(f, wm)
+        kf.prev_kf = prev
+        if prev is not None:
+            prev.next_kf = kf
+        prev = kf
+        kfs.append(kf)
+        for i, g in enumerate(ids):
+            if keep is not None and not keep[k][i]:
+                continue
+            mp = id_to_mp.get(g)
+            if mp is None:
+                mp = id_to_mp[g] = pkg.wm.MapPoint(points[g], kf)
+                wm.add_map_point(mp)
+            mp.add_observation(kf, i)
+            kf.add_map_point(mp, i)
+        wm.add_keyframe(kf)
+    for kf in kfs:
+        kf.update_connections()
+    for mp in id_to_mp.values():
+        mp.update_normal_and_depth()
+    if colines:
+        for kf in kfs:
+            wm.create_map_colines(kf)
+    if imu is not None:
+        links, vels = imu
+        for kf, v in zip(kfs, vels):
+            kf.velocity = np.asarray(v, np.float32).copy()
+        for kf, meas in zip(kfs[1:], links):
+            if hasattr(meas, "copy"):
+                kf.preintegrated = meas.copy()
+                continue
+            p = pkg.Preintegrated(np.zeros(6), rig.nga, rig.nga_walk)
+            p.integrate_measurements(*meas)
+            kf.preintegrated = p
+        wm.imu_initialized = True
+    dRs, dts, dps = pert
+    for kf, dR, dt in zip(kfs[2:], dRs, dts):
+        kf.set_pose(dR @ kf.Rcw, kf.tcw + dt)
+    for g, mp in id_to_mp.items():
+        mp.pos = mp.pos + dps[g]
+    return wm, kfs, id_to_mp
+
+
+def port_namespace(device, cam=CAM):
+    """The port's side of build_map, its integrations on `device`."""
+    import types
+
+    from . import worldmap
+    from .frontend.extractor import FrameFeatures
+    from .imu import Preintegrated
+
+    return types.SimpleNamespace(
+        wm=worldmap, Features=FrameFeatures, cam=cam,
+        Preintegrated=lambda *a: Preintegrated(*a, device=device))
+
+
+class EurocWindow:
+    """The estimator's full-size synthetic window at EuRoC width:
+    configs/euroc.yaml's 752x480 pinhole, a 200 Hz IMU consistent with the
+    trajectory, `n_kf` keyframes `kf_every` frames apart (20 fps) over a
+    scene of points and colinear triplets. Each keyframe detects about
+    `kp_per_kf` of the points it sees and observes about `obs_per_kf` of
+    them as map points (whole triplets kept together, each map point seen
+    by at least `min_obs` keyframes), a share
+    `kf_outliers` of those displaced by 20 px. Two tracking frames
+    past the last keyframe match `n_match` map points each, `n_outliers` of
+    them displaced by 30 px, against map points `tracked_point_noise` m
+    from the truth. Keypoints carry `noise_px` of pixel noise.
+    Everything is numpy, made from `seed`."""
+
+    def __init__(self, seed=0, n_kf=20, kf_every=6, n_points=4200,
+                 kp_per_kf=500, obs_per_kf=300, min_obs=3, kf_outliers=0.02,
+                 n_match=500, n_outliers=25, noise_px=0.5,
+                 tracked_point_noise=0.003):
+        from .geometry import so3
+
+        rng = np.random.RandomState(seed + 5)
+        scene = SyntheticScene(n_points=n_points, seed=seed, cam=EUROC_CAM,
+                               extent=((-4, 10), (-3, 5), (4, 12)))
+        self.seq = seq = SyntheticSequence(n_frames=n_kf * kf_every + 4,
+                                           seed=seed, scene=scene)
+        self.kf_frames = frames = [k * kf_every for k in range(n_kf)]
+        self.poses = [seq.frame_tcw(i) for i in frames]
+        self.times = [seq.frame_times[i] for i in frames]
+        # landmark groups: a free point, or a whole colinear triplet
+        group = np.arange(scene.n)
+        for t, (p, a, b) in enumerate(scene.triplets):
+            group[[p, a, b]] = scene.n + t
+        n_groups = scene.n + len(scene.triplets)
+
+        # each group is tracked over a run of 3-5 consecutive keyframes,
+        # where it is seen; the other keypoints of a keyframe are unmatched
+        start = rng.randint(-4, n_kf, n_groups)
+        length = rng.randint(3, 6, n_groups)
+        seen = [scene.render(R, t)[1] for R, t in self.poses]
+        active, subsets = [], []
+        for k, ids in enumerate(seen):
+            act = ((start <= k) & (k < start + length))[group]
+            n_act = int(act[ids].sum())
+            extra = rng.rand(scene.n) < max(kp_per_kf - n_act, 0) / max(
+                len(ids) - n_act, 1)
+            active.append(act)
+            subsets.append(act | extra)
+        self.views = render_views(scene, self.poses, noise_px, subsets)
+        self.keep = [active[k][ids] for k, (_, ids) in enumerate(self.views)]
+        # a map holds no point seen by fewer than `min_obs` keyframes (the
+        # local mapper culls them, Map.cpp; worldmap/map.py)
+        n_seen = np.zeros(scene.n, int)
+        for (_, ids), kp in zip(self.views, self.keep):
+            n_seen[ids[kp]] += 1
+        self.keep = [kp & (n_seen[ids] >= min_obs)
+                     for (_, ids), kp in zip(self.views, self.keep)]
+        # mismatches: `kf_outliers` of each keyframe's observations
+        # displaced by 20 px
+        for (feats, _), kp in zip(self.views, self.keep):
+            obs = np.nonzero(kp)[0]
+            bad = rng.choice(obs, int(round(kf_outliers * len(obs))),
+                             replace=False)
+            ang = rng.uniform(0, 2 * np.pi, len(bad))
+            shift = 20.0 * np.stack([np.cos(ang), np.sin(ang)], 1)
+            for key in ("kp_pos", "kp_pos_un"):
+                feats[key] = feats[key].copy()
+                feats[key][bad] += shift.astype(np.float32)
+        self.links = imu_links(seq, self.times)
+        self.vels = [seq.frame_vels[i] for i in frames]
+        dRs, dts, dps = perturbation(n_kf, scene.n, noise_pose=0.01,
+                                     noise_pt=0.02, seed=seed + 61)
+        # the last KF as tracking leaves it: the next frames' reference
+        dRs[-1], dts[-1] = np.eye(3, dtype=np.float32), np.zeros(3,
+                                                                 np.float32)
+        self.pert = (dRs, dts, dps)
+        mapped = np.zeros(scene.n, bool)
+        for (_, ids), kp in zip(self.views, self.keep):
+            mapped[ids[kp]] = True
+        # two tracking frames past the last KF: their matches and a pose
+        # guess (truth perturbed)
+        self.frames = []
+        t_prev = self.times[-1]
+        for i in (frames[-1] + 2, frames[-1] + 3):
+            Rcw, tcw = seq.frame_tcw(i)
+            feats, ids = scene.render(Rcw, tcw, noise=noise_px,
+                                      subset=mapped)
+            sel = rng.permutation(len(ids))[:n_match]
+            uv = feats.kp_pos_un[sel].copy()
+            bad = rng.choice(len(sel), min(n_outliers, len(sel)),
+                             replace=False)
+            ang = rng.uniform(0, 2 * np.pi, len(bad))
+            uv[bad] += 30.0 * np.stack([np.cos(ang), np.sin(ang)], 1)
+            m = seq.imu_between(t_prev, seq.frame_times[i])
+            self.frames.append(dict(
+                index=i, time=seq.frame_times[i], gids=ids[sel],
+                uv=uv.astype(np.float32), outliers=np.sort(bad),
+                Rcw=(so3.exp(rng.randn(3).astype(np.float32) * 0.004)
+                     @ Rcw).astype(np.float32),
+                tcw=(tcw + rng.randn(3).astype(np.float32) * 0.02).astype(
+                    np.float32),
+                imu=(m[:, :3].astype(np.float32), m[:, 3:6].astype(
+                    np.float32), np.diff(np.concatenate(
+                        [[t_prev], m[:, 6]])).astype(np.float32))))
+            t_prev = seq.frame_times[i]
+        # the map points as tracking sees them (refined by earlier BAs)
+        self.tracked_points = (scene.points + rng.randn(scene.n, 3).astype(
+            np.float32) * tracked_point_noise).astype(np.float32)
+        self.n_landmarks = int(mapped.sum())
+        self.n_obs = int(sum(k.sum() for k in self.keep))
+
+    def build(self, pkg, preintegrated=None):
+        """A fresh (map, keyframes, {gid: MapPoint}) of the window; the
+        links are integrated anew unless `preintegrated` (one Preintegrated
+        a link) is given, which the keyframes then hold copies of."""
+        return build_map(pkg, self.poses, self.views, self.seq.scene.points,
+                         self.pert, self.times,
+                         (preintegrated or self.links, self.vels),
+                         keep=self.keep, colines=True)
+
+    def frame_inputs(self, k, pad=512):
+        """Tracking frame k's padded pose-optimization inputs (numpy): X,
+        uv, valid, close (tracked depth < 10 m), padded to `pad` rows as
+        the tracker pads them."""
+        f = self.frames[k]
+        n = len(f["gids"])
+        X = np.zeros((pad, 3), np.float32)
+        uv = np.zeros((pad, 2), np.float32)
+        valid = np.zeros(pad, bool)
+        X[:n] = self.tracked_points[f["gids"]]
+        uv[:n] = f["uv"]
+        valid[:n] = True
+        twc = -f["Rcw"].T @ f["tcw"]
+        close = np.zeros(pad, bool)
+        close[:n] = np.linalg.norm(X[:n] - twc, axis=1) < 10.0
+        return X, uv, valid, close

@@ -1,0 +1,102 @@
+"""Per-stage profiling and pipeline counters.
+
+The reference has no systematic tracing (SURVEY.md §5): its example
+programs time whole frames with chrono only to pace playback
+(try_euroc.cpp:135-147), and the viewer overlays KF/MP counts. The
+rebuild makes observability first-class:
+
+  * ``Profiler`` — named wall-time accumulators (count/total/max/last) with
+    a context-manager API, cheap enough to leave on (a dict update per
+    stage), plus integer counters;
+  * a process-global ``profiler`` instance the pipeline stages report into
+    (tracking: preintegrate/extract/pose_opt/local_map; local mapping:
+    fuse/lba; loop closing: detect/correct/gba);
+  * ``summary()`` / ``report()`` for the CLI stats dict and bench stderr
+    breakdowns.
+
+Enable/disable globally with ``profiler.enabled``; timings of device work
+measure the host-blocking dispatch + fetch, the latency the pipeline sees.
+Framework-free copy of ppg_slam_tpu/utils/profiling.py.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Dict
+
+
+class _Stat:
+    __slots__ = ("count", "total", "max", "last")
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+        self.max = 0.0
+        self.last = 0.0
+
+    def add(self, dt: float) -> None:
+        self.count += 1
+        self.total += dt
+        self.last = dt
+        if dt > self.max:
+            self.max = dt
+
+
+class Profiler:
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.stats: Dict[str, _Stat] = {}
+        self.counters: Dict[str, int] = {}
+
+    # ------------------------------------------------------------------
+    @contextmanager
+    def timer(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stats.setdefault(name, _Stat()).add(
+                time.perf_counter() - t0)
+
+    def add_time(self, name: str, dt: float) -> None:
+        if self.enabled:
+            self.stats.setdefault(name, _Stat()).add(dt)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if self.enabled:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    # ------------------------------------------------------------------
+    def summary(self) -> dict:
+        out = {}
+        for name, s in sorted(self.stats.items()):
+            out[name] = dict(count=s.count, total_ms=s.total * 1e3,
+                             mean_ms=(s.total / s.count * 1e3) if s.count
+                             else 0.0, max_ms=s.max * 1e3)
+        if self.counters:
+            out["counters"] = dict(sorted(self.counters.items()))
+        return out
+
+    def report(self) -> str:
+        lines = [f"{'stage':<28}{'count':>7}{'mean ms':>10}{'max ms':>10}"
+                 f"{'total s':>10}"]
+        for name, s in sorted(self.stats.items(),
+                              key=lambda kv: -kv[1].total):
+            mean = s.total / s.count * 1e3 if s.count else 0.0
+            lines.append(f"{name:<28}{s.count:>7}{mean:>10.2f}"
+                         f"{s.max * 1e3:>10.2f}{s.total:>10.2f}")
+        for name, v in sorted(self.counters.items()):
+            lines.append(f"{name:<28}{v:>7}")
+        return "\n".join(lines)
+
+    def reset(self) -> None:
+        self.stats.clear()
+        self.counters.clear()
+
+
+# process-global instance the pipeline reports into
+profiler = Profiler(enabled=True)

@@ -1,0 +1,268 @@
+"""The port's per-frame pose optimizers (ppg_slam_tpu_torch.estimator.
+pose_opt) against ppg_slam_tpu's, on the fixtures of tests/test_estimator.py
+(TestPoseOpt, TestMarginalize) rebuilt from their recipe with a seed of this
+file's own: pose_optimization, pose_inertial_optimization in both variants
+and in the <30-inlier recovery, marginalize_schur, and the analytic
+per-observation Jacobians against torch.func.jacfwd.
+
+Both packages get the same float32 numpy inputs; the preintegration both
+see is the reference's, as numpy."""
+
+import numpy as np
+import pytest
+import torch
+from torch.func import jacfwd, vmap
+
+import jax
+import jax.numpy as jnp
+from ppg_slam_tpu.estimator import pose_opt as J
+from ppg_slam_tpu.geometry.cameras import CameraModel as JCamera
+from ppg_slam_tpu.imu import GRAVITY_VALUE, integrate
+
+from ppg_slam_tpu_torch.estimator import pose_opt as P
+from ppg_slam_tpu_torch.geometry import so3
+from ppg_slam_tpu_torch.geometry.cameras import CAM_PINHOLE, CameraModel
+
+CAM_KW = dict(kind=CAM_PINHOLE, fx=400.0, fy=400.0, cx=320.0, cy=240.0,
+              dist=(0.0, 0.0, 0.0, 0.0), width=640, height=480)
+JCAM, PCAM = JCamera(**CAM_KW), CameraModel(**CAM_KW)
+EYE = np.eye(3, dtype=np.float32)
+Z3 = np.zeros(3, np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def world(rng, n_kf, n_mp):
+    """tests/test_estimator.py's make_world: cameras on an arc (body ==
+    camera) before a point cloud; returns points, Rwb, twb, uv (K, M, 2)."""
+    points = np.stack([rng.uniform(-2, 2, n_mp), rng.uniform(-1.5, 1.5, n_mp),
+                       rng.uniform(4, 8, n_mp)], 1).astype(np.float32)
+    Rwb = np.stack([so3.exp(np.float32([0.0, 0.05 * (k - n_kf / 2), 0.0]))
+                    for k in range(n_kf)]).astype(np.float32)
+    twb = np.stack([np.array([0.5 * k, 0.02 * k, 0.1 * np.sin(k)], np.float32)
+                    for k in range(n_kf)])
+    Xc = np.einsum("kji,kmj->kmi", Rwb, points[None] - twb[:, None])
+    uv = np.stack([400 * Xc[..., 0] / Xc[..., 2] + 320,
+                   400 * Xc[..., 1] / Xc[..., 2] + 240], -1)
+    return points, Rwb, twb, uv.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# pose_optimization
+# ---------------------------------------------------------------------------
+
+def test_pose_optimization_matches_reference():
+    """TestPoseOpt.test_pose_optimization_recovers_pose: 80 points, 12 of
+    them displaced by 20-80 px, the pose perturbed. Measured: pose within
+    9e-8 of the reference's, the same inliers; held to 1e-5."""
+    rng = np.random.RandomState(201)
+    points, Rwb, twb, uv = world(rng, 1, 80)
+    Rcw = Rwb[0].T
+    tcw = -Rcw @ twb[0]
+    uv = uv[0].copy()
+    bad = rng.choice(80, 12, replace=False)
+    uv[bad] += rng.randn(12, 2).astype(np.float32) * 60 + 20
+    R0 = (so3.exp(np.float32([0.02, -0.01, 0.03])) @ Rcw).astype(np.float32)
+    t0 = (tcw + np.float32([0.05, -0.03, 0.08])).astype(np.float32)
+    valid = np.ones(80, bool)
+    args = (R0, t0, points, uv, valid)
+    ref = jax.device_get(J.pose_optimization(*map(jnp.asarray, args), JCAM))
+    got = P.pose_optimization(*map(_t, args), PCAM)
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    assert int(got[3]) == int(ref[3]) >= 60
+    np.testing.assert_allclose(got[1].numpy(), tcw, atol=2e-3)
+    assert not got[2].numpy()[bad].any()
+
+
+# ---------------------------------------------------------------------------
+# pose_inertial_optimization
+# ---------------------------------------------------------------------------
+
+def inertial_fixture(noise_px=0.0, n_mp=60, seed=202):
+    """TestPoseOpt.test_pose_inertial_optimization: body motion with the
+    discrete model the preintegration assumes, ending at KF 1; the current
+    state perturbed. Returns numpy (curr, prev, preint, prior, X, uv)."""
+    rng = np.random.RandomState(seed)
+    points, Rwb, twb, uv = world(rng, 2, n_mp)
+    uv = uv[1] + rng.randn(n_mp, 2).astype(np.float32) * noise_px
+    n = 20
+    dtm = np.full(n, 0.005, np.float32)
+    g = np.float32([0, 0, -GRAVITY_VALUE])
+    dT = float(dtm.sum())
+    vel0 = np.float32([0.3, -0.1, 0.2])
+    a_total = (2.0 * (twb[1] - twb[0] - vel0 * dT) / dT ** 2).astype(
+        np.float32)
+    wb = so3.log(Rwb[0].T @ Rwb[1]).astype(np.float32) / dT
+    accs, gyrs = [], []
+    R, v = Rwb[0].copy(), vel0.copy()
+    for k in range(n):
+        accs.append((R.T @ (a_total - g)).astype(np.float32))
+        gyrs.append(wb)
+        v = v + a_total * dtm[k]
+        R = R @ so3.exp(wb * dtm[k]).astype(np.float32)
+    st = jax.device_get(integrate(
+        jnp.asarray(np.stack(accs)), jnp.asarray(np.stack(gyrs)),
+        jnp.asarray(dtm), jnp.ones(n, bool), jnp.zeros(6, jnp.float32),
+        jnp.full(6, 1e-5, jnp.float32), jnp.full(6, 1e-8, jnp.float32)))
+    f32 = lambda x: np.asarray(x, np.float32)
+    preint = (st.dR, st.dV, st.dP, st.JRg, st.JVg, st.JVa, st.JPg, st.JPa,
+              np.zeros(6), np.eye(9) * 50.0, np.eye(3) * 100.0,
+              np.eye(3) * 100.0, np.float32(dT))
+    z = np.zeros(3)
+    prior = (Rwb[0], twb[0], vel0, z, z, np.eye(15) * 1e4)
+    prev = (Rwb[0], twb[0], vel0, z, z)
+    dR = so3.exp(np.float32([0.01, 0.02, -0.01]))
+    curr = (Rwb[1] @ dR, twb[1] + np.float32([0.04, -0.02, 0.05]),
+            v + np.float32([0.1, 0, -0.1]), z, z)
+    out = [[f32(x) for x in part] for part in (curr, prev, preint, prior)]
+    return out + [points, uv.astype(np.float32), twb[1], v]
+
+
+def run_inertial(fix, fix_prev, rec_init=False, prior_valid=True):
+    """pose_inertial_optimization in both packages: (ref, got), each
+    (state, inlier, n_inliers, new prior H) as numpy."""
+    curr, prev, preint, prior, X, uv = fix[:6]
+    n = len(X)
+    valid, close = np.ones(n, bool), np.zeros(n, bool)
+    ref = jax.device_get(J.pose_inertial_optimization(
+        J.FrameVIState(*map(jnp.asarray, curr)),
+        J.FrameVIState(*map(jnp.asarray, prev)),
+        J.PreintData(*map(jnp.asarray, preint)),
+        J.Prior15(*map(jnp.asarray, prior), valid=jnp.asarray(prior_valid)),
+        jnp.asarray(X), jnp.asarray(uv), jnp.asarray(valid),
+        jnp.asarray(close), jnp.asarray(EYE), jnp.asarray(Z3), JCAM,
+        fix_prev=fix_prev, rec_init=rec_init))
+    got = P.pose_inertial_optimization(
+        P.FrameVIState(*map(_t, curr)), P.FrameVIState(*map(_t, prev)),
+        P.PreintData(*map(_t, preint)),
+        P.Prior15(*map(_t, prior), valid=torch.tensor(prior_valid)),
+        _t(X), _t(uv), _t(valid), _t(close), _t(EYE), _t(Z3), PCAM,
+        fix_prev=fix_prev, rec_init=rec_init)
+    ref = ([np.asarray(x) for x in ref[0]], np.asarray(ref[1]),
+           int(ref[2]), np.asarray(ref[3].H, np.float64))
+    got = ([x.numpy() for x in got[0]], got[1].numpy(), int(got[2]),
+           got[3].H.numpy().astype(np.float64))
+    return ref, got
+
+
+# Measured (CPU, f32): the states within 3.5e-7 of the reference's (R, t,
+# v, biases), the same inliers, and the new 15-D prior's Hessian within
+# 4.7e-7 of its largest entry. Held to 1e-4 and 1e-3.
+@pytest.mark.parametrize("fix_prev", [False, True], ids=["last_frame",
+                                                         "last_keyframe"])
+def test_pose_inertial_optimization_matches_reference(fix_prev):
+    fix = inertial_fixture()
+    (s_r, in_r, n_r, H_r), (s_g, in_g, n_g, H_g) = run_inertial(
+        fix, fix_prev, prior_valid=not fix_prev)
+    for name, g, r in zip(("R", "t", "v", "bg", "ba"), s_g, s_r):
+        np.testing.assert_allclose(g, r, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(in_g, in_r)
+    assert n_g == n_r >= 55
+    assert np.abs(H_g - H_r).max() <= 1e-3 * np.abs(H_r).max()
+    # the fixture's own claim, on the port
+    np.testing.assert_allclose(s_g[1], fix[6], atol=5e-3)
+    np.testing.assert_allclose(s_g[2], fix[7], atol=5e-2)
+    assert np.linalg.eigvalsh(H_g).min() > -1e-3 * np.abs(H_g).max()
+
+
+@pytest.mark.parametrize("rec_init", [False, True], ids=["relaxed",
+                                                         "rec_init"])
+def test_pose_inertial_recovery_matches_reference(rec_init):
+    """3 px of pixel noise leaves fewer than 30 inliers under 5.991, which
+    the recovery pass relaxes to chi2 < 18 (not in the rec_init variant):
+    37 and 14 inliers of 60. Measured: the states within 2.4e-7 of the
+    reference's, the same inliers."""
+    fix = inertial_fixture(noise_px=3.0)
+    (s_r, in_r, n_r, _), (s_g, in_g, n_g, _) = run_inertial(fix, False,
+                                                            rec_init)
+    for name, g, r in zip(("R", "t", "v", "bg", "ba"), s_g, s_r):
+        np.testing.assert_allclose(g, r, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(in_g, in_r)
+    assert n_g == n_r
+    assert (n_g < 30) == rec_init
+
+
+# ---------------------------------------------------------------------------
+# the small dense pieces and the analytic Jacobians
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_marginalize_schur_matches_reference(dtype):
+    """TestMarginalize.test_schur_identity: a 30x30 SPD matrix, the leading
+    15 variables marginalized (SVD pseudo-inverse). Measured: 8e-16 (f64)
+    and 4.7e-7 (f32) of the largest entry against the reference; held to
+    1e-8 and 1e-3, and to the dense Schur complement in f64."""
+    rng = np.random.RandomState(203)
+    A = rng.randn(30, 30)
+    H = (A @ A.T).astype(dtype)
+    got = P.marginalize_schur(_t(H), 15).numpy()
+    with jax.enable_x64(dtype == np.float64):
+        ref = np.asarray(J.marginalize_schur(jnp.asarray(H), 15))
+    tol = 1e-8 if dtype == np.float64 else 1e-3
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= tol * scale
+    if dtype == np.float64:
+        dense = H[15:, 15:] - H[15:, :15] @ np.linalg.inv(H[:15, :15]) \
+            @ H[:15, 15:]
+        assert np.abs(got - dense).max() <= 1e-6 * scale
+
+
+def test_sqrtm_and_jacobi_solve_match_reference():
+    """The whitening square root and the Jacobi-scaled 30x30 solve on an
+    SPD system mixing 1e8- and 1e2-scale blocks. Measured: 8.2e-7 and
+    6.9e-8 relative; held to 1e-4."""
+    rng = np.random.RandomState(204)
+    A = rng.randn(30, 30)
+    scale = np.concatenate([np.full(15, 1e4), np.full(15, 10.0)])
+    H = ((A @ A.T + 30 * np.eye(30)) * scale[:, None] * scale[None, :]
+         ).astype(np.float32)
+    g = rng.randn(30).astype(np.float32)
+    got = P._jacobi_solve(_t(H), _t(g)).numpy()
+    ref = np.asarray(J._jacobi_solve(jnp.asarray(H), jnp.asarray(g)))
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    M = (A @ A.T).astype(np.float32)
+    got = P._sqrtm_psd(_t(M)).numpy()
+    ref = np.asarray(J._sqrtm_psd(jnp.asarray(M)))
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind,dist", [
+    (0, (0.0, 0.0, 0.0, 0.0)),
+    (1, (0.003, 0.0007, -0.002, 0.0002)),  # KB8 fisheye
+], ids=["pinhole", "kb8"])
+def test_analytic_jacobians_match_jacfwd(kind, dist):
+    """_reproj_tcw_batch and _mono_batch (analytic) against torch.func.jacfwd
+    of the per-observation residuals _reproj_tcw and _mono_res_body, which
+    the reference differentiates with jax.jacfwd. Measured: 3.7e-7 of the
+    largest entry; held to 1e-4."""
+    rng = np.random.RandomState(205)
+    cam = CameraModel(kind=kind, fx=200.0, fy=210.0, cx=64.0, cy=48.0,
+                      dist=dist, width=128, height=96)
+    O = 40
+    R = _t(so3.exp(np.float32([0.1, -0.2, 0.05])).astype(np.float32))
+    t = _t(np.float32([0.2, -0.1, 0.3]))
+    X = _t((rng.randn(O, 3) * [2, 2, 1] + [0, 0, 6]).astype(np.float32))
+    uv = _t((rng.rand(O, 2) * 100).astype(np.float32))
+    Rcb = _t(so3.exp(np.float32([0.05, -0.02, 0.1])).astype(np.float32))
+    tcb = _t(np.float32([0.01, -0.02, 0.03]))
+    z6 = torch.zeros(6)
+
+    r, J_a = P._reproj_tcw_batch(R, t, X, uv, cam, want_jac=True)
+    J_f = vmap(lambda x, u: jacfwd(P._reproj_tcw)(z6, R, t, x, u, cam))(X, uv)
+    r_f = vmap(lambda x, u: P._reproj_tcw(z6, R, t, x, u, cam))(X, uv)
+    assert float((J_a - J_f).abs().max()) <= 1e-4 * float(J_f.abs().max())
+    assert float((r - r_f).abs().max()) <= 1e-4
+
+    r, depth, J_a = P._mono_batch(R, t, X, uv, Rcb, tcb, cam, want_jac=True)
+    J_f = vmap(lambda x, u: jacfwd(
+        lambda d: P._mono_res_body(d, R, t, x, u, Rcb, tcb, cam)[0])(z6))(
+        X, uv)
+    r_f, d_f = vmap(lambda x, u: P._mono_res_body(z6, R, t, x, u, Rcb, tcb,
+                                                  cam))(X, uv)
+    assert float((J_a - J_f).abs().max()) <= 1e-4 * float(J_f.abs().max())
+    assert float((r - r_f).abs().max()) <= 1e-4
+    assert float((depth - d_f).abs().max()) <= 1e-5
