@@ -12,9 +12,15 @@ configuration (bf16 nets, device-resident descriptors, gated matching),
 requires the main path to launch the fused kernels pair_probe and
 line_validate once a frame, checks batching and a TUM-VI fisheye frame,
 then drives the estimator layer at EuRoC width (phase 8: preintegration,
-pose and pose-inertial optimization, local, local-inertial and global BA and
-inertial initialization on a 20-keyframe synthetic window, each held
-against the same call on CPU tensors), and prints one line per phase. Every
+pose and pose-inertial optimization, local, local-inertial and global BA,
+inertial initialization, two-view reconstruction, full_inertial_ba with and
+without b_init, the whole-map transform gain and the conformal scale search
+on a 20-keyframe synthetic window, each held against the same call on CPU
+tensors), then the port's System end to end
+(phase 9: a rendered 752x480 corridor with its IMU, tracked through
+monocular and IMU initialization in the serving configuration with the real
+weights and the EuRoC vocabulary, held to the ground truth; the first frames
+again in f32 against a CPU run), and prints one line per phase. Every
 phase's failure is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
@@ -58,8 +64,38 @@ EST_MASK_SHARE = 1e-2     # inlier/outlier decisions that may differ
 EST_STATE_ABS = 1e-3      # pose-opt / inertial-init outputs (rad, m, m/s)
 EST_PREINT_ABS = 1e-4     # preintegrated deltas and bias Jacobians
 EST_PREINT_COV_REL = 1e-3  # preintegration covariance, of its largest entry
+EST_TV_TOL = 1e-4         # two-view R, t (abs); points: see phase 8
+EST_GAIN_REL = 1e-4       # whole-map chi2 before and after a transform
+EST_SCALE_REL = 1e-3      # conformal scales
+# full_inertial_ba ends in a flat valley of the point depths (4-12 m deep
+# over 0.6-1.2 s of baseline), where CUDA's unordered index_add_ sums move
+# its path from run to run: over three runs (two with b_init) CUDA and the
+# CPU parted by up to 0.61 mm in centres, 1.4 mm in the median point and
+# 3.0e-4 in velocities and biases with b_init off, 2.1 mm, 4.2 mm and
+# 4.4e-4 with it on (125 iterations), at chi2 1.2e-4 and 2.2e-4 apart. The
+# states are held at about 5x those readings, the chi2 at 9x.
+EST_FIBA_M = 2e-2
+EST_FIBA_VB = 5e-3
+EST_FIBA_CHI2_REL = 2e-3
 EST_WARM_CALLS = 5
+TV_KF = 2                 # two-view between keyframes 0 and TV_KF
+FIBA_SCALE = 1.5          # the b_init full_inertial_ba's mis-scaled start
 INIT_SCALE = 2.5          # the scale inertial initialization recovers
+
+# phase 9: the System on the rendered corridor
+SYS_FRAMES = 100          # 5 s at 20 Hz
+SYS_F32_FRAMES = 20       # the f32 rerun, against a CPU run
+SYS_IMU_INI_TIME = 2.0
+# KF-ATE limit: a few times the 1.0-1.95 cm the card has read, far inside
+# bench.py's pinned live-corridor 3 x 0.86 m
+SYS_ATE_M = 0.1
+SYS_MP_REL = 0.02         # f32 rerun: map points, CUDA against the CPU
+SYS_BUSY_FRAMES = 10
+# the estimator's tensor functions the System must run, each counted under
+# its device (profiler.count_device)
+SYS_DEVICE_CALLS = ("integrate", "two_view_reconstruct", "pose_optimization",
+                    "pose_inertial_optimization", "inertial_optimization",
+                    "solve_ba", "conformal_scan")
 
 
 class PhaseError(RuntimeError):
@@ -687,14 +723,17 @@ class Smoke:
 
         def report(name, diffs, profiled):
             """Print a row; `profiled` is device_profile's result on one
-            more call."""
-            k, c, busy, syncs = profiled
+            more call, or None where that call is not made."""
+            prof = "not profiled"
+            if profiled is not None:
+                k, c, busy, syncs = profiled
+                prof = (f"{k} kernels + {c} copies per call, device busy "
+                        f"{busy:.3f} ms, {syncs} host syncs flagged")
             say(f"  {name}: " + ", ".join(
                 f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in diffs.items())
-                + f"; {k} kernels + {c} copies per call, device busy "
-                f"{busy:.3f} ms, {syncs} host syncs flagged; step "
-                f"{time.time() - t_step[0]:.1f} s [{self.card}]")
+                + f"; {prof}; step {time.time() - t_step[0]:.1f} s "
+                f"[{self.card}]")
             t_step[0] = time.time()
 
         # ---- preintegration of the 19 links --------------------------------
@@ -978,6 +1017,8 @@ class Smoke:
             max_velocity_err=v_err, ms=ms),
             device_profile(lambda: run_init(self.dev)))
 
+        self.estimator_map_level(win, fresh, tens, report)
+
         from ppg_slam_tpu_torch.ops import pairs, sampling
 
         counts = [sampling.nearest_binary_packed.launches,
@@ -990,6 +1031,397 @@ class Smoke:
             f"matches the CPU within its limits in "
             f"{time.time() - t_phase:.1f} s [{self.card}]")
 
+    def estimator_map_level(self, win, fresh, tens, report):
+        """Phase 8's map-level calls, each on CUDA through the default
+        device against the same call on CPU tensors: two-view
+        reconstruction between keyframes 0 and TV_KF, full_inertial_ba
+        with b_init off and on (the CPU side with CUDA's backtracking), and
+        on the map it solved the full-objective transform gain and the
+        conformal scale search after a x INIT_SCALE mis-scaling."""
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.estimator import ba
+        from ppg_slam_tpu_torch.geometry import so3
+        from ppg_slam_tpu_torch.geometry.two_view import (
+            make_ransac_sets, two_view_reconstruct)
+
+        def centres(m):
+            return np.stack([kf.camera_center() for kf in m[1]])
+
+        # ---- two-view reconstruction ------------------------------------
+        (f0, ids0), (f1, ids1) = win.views[0], win.views[TV_KF]
+        _, i0, i1 = np.intersect1d(ids0, ids1, return_indices=True)
+        host = (f0["kp_pos_un"][i0], f1["kp_pos_un"][i1],
+                np.ones(len(i0), bool),
+                make_ransac_sets(np.arange(len(i0)), seed=SEED),
+                np.asarray(testing.EUROC_CAM.K(), np.float32))
+        tv_args = {d: tens(host, d) for d in (self.dev, "cpu")}
+
+        def run_tv(device):
+            return two_view_reconstruct(*tv_args[device])
+
+        g_tv = [x.cpu().numpy() for x in run_tv(self.dev)]
+        c_tv = [x.numpy() for x in run_tv("cpu")]
+        check(bool(g_tv[0]) and bool(c_tv[0]),
+              f"two_view_reconstruct: ok {bool(g_tv[0])} on CUDA, "
+              f"{bool(c_tv[0])} on the CPU")
+        tri = g_tv[4] & c_tv[4]
+        d_R = float(np.abs(g_tv[1] - c_tv[1]).max())
+        d_t = float(np.abs(g_tv[2] - c_tv[2]).max())
+        dist = np.linalg.norm(c_tv[3][tri], axis=1)
+        d_pts = np.linalg.norm(g_tv[3][tri] - c_tv[3][tri], axis=1)
+        d_X = float((d_pts / dist).max())
+        # a pose difference of delta moves a point at distance d (in units
+        # of the baseline, |t21| = 1; d is 22-142 on this pair) by up to
+        # ~delta * d relative: each point is held to EST_TV_TOL * d
+        d_Xd = float((d_pts / dist ** 2).max())
+        flips = int((g_tv[4] != c_tv[4]).sum())
+        (R1, t1), (R2, t2) = win.poses[0], win.poses[TV_KF]
+        R21, t21 = R2 @ R1.T, t2 - R2 @ R1.T @ t1
+        rot_err = float(np.linalg.norm(so3.log(
+            (g_tv[1].T @ R21).astype(np.float32))))
+        t_cos = float(g_tv[2] @ t21 / np.linalg.norm(g_tv[2])
+                      / np.linalg.norm(t21))
+        check(max(d_R, d_t, d_Xd) <= EST_TV_TOL
+              and flips <= EST_MASK_SHARE * len(i0),
+              f"two_view_reconstruct cuda vs cpu: R {d_R}, t {d_t}, points "
+              f"{d_X} relative ({d_Xd} of their distance squared), {flips} "
+              "triangulation flips")
+        # a 0.21 m baseline over 4-12 m depth: the translation's direction
+        # is loosely determined (the CPU reads 0.944), so these are sanity
+        check(rot_err < 1e-2 and t_cos > 0.9,
+              f"two_view_reconstruct: rotation {rot_err} rad from the truth,"
+              f" translation direction cosine {t_cos}")
+        report("two_view_reconstruct", dict(
+            matches=len(i0), triangulated=int(g_tv[4].sum()),
+            max_R_diff=d_R, max_t_diff=d_t, max_point_rel_diff=d_X,
+            max_point_diff_per_dist2=d_Xd,
+            tri_flips=flips, rot_err_rad=rot_err, t_dir_cos=t_cos,
+            ms=host_ms(lambda _: run_tv(self.dev))),
+            device_profile(lambda: run_tv(self.dev)))
+
+        # ---- full_inertial_ba, as IMU initialization calls it -----------
+        # b_init on: the first IMU initialization's call, on the window
+        # mis-scaled x FIBA_SCALE, which only the conformal search undoes
+        I3 = np.eye(3, dtype=np.float32)
+        for name, scale, kw in (
+                ("full_inertial_ba", 1.0, dict(b_init=False)),
+                ("full_inertial_ba_b_init", FIBA_SCALE, dict(
+                    b_init=True, prior_g=1e2, prior_a=1e10,
+                    conformal_shrink_cum=0.6))):
+            def start(side, scale=scale):
+                mm = fresh(side)
+                mm[0].apply_scaled_rotation(I3, scale, scale_vel=True)
+                return mm
+
+            g_map, c_map = start("cuda"), start("cpu")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g_sum = ba.full_inertial_ba(g_map[0], iters=100, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            c_sum = ba.full_inertial_ba(c_map[0], iters=100, device="cpu",
+                                        backtrack=True, **kw)
+            cg, cc = centres(g_map), centres(c_map)
+            check(np.isfinite(cg).all()
+                  and np.isfinite(g_sum["final_chi2"])
+                  and g_sum["final_chi2"] < g_sum["initial_chi2"],
+                  f"{name}: chi2 {g_sum['initial_chi2']} -> "
+                  f"{g_sum['final_chi2']}")
+            d_c = float(np.abs(cg - cc).max())
+            d_p = float(np.median([np.linalg.norm(mp.pos - c_map[2][g].pos)
+                                   for g, mp in g_map[2].items()]))
+            d_vb = max(float(np.abs(np.concatenate([a.velocity, a.bias])
+                                    - np.concatenate([b.velocity, b.bias])
+                                    ).max())
+                       for a, b in zip(g_map[1], c_map[1]))
+            d_chi2 = abs(g_sum["final_chi2"] - c_sum["final_chi2"]) \
+                / c_sum["final_chi2"]
+            sg, sc = g_sum["conformal_scales"], c_sum["conformal_scales"]
+            same_scales = len(sg) == len(sc) and all(
+                abs(a - b) <= EST_SCALE_REL * b for a, b in zip(sg, sc))
+            check(d_c <= EST_FIBA_M and d_p <= EST_FIBA_M
+                  and d_vb <= EST_FIBA_VB and d_chi2 <= EST_FIBA_CHI2_REL
+                  and same_scales,
+                  f"{name} cuda vs cpu: centres {d_c} m, median point {d_p}"
+                  f" m, velocities and biases {d_vb}, chi2 {d_chi2}, "
+                  f"conformal scales {sg} vs {sc}")
+            report(name, dict(
+                kfs=g_sum["n_kf"], points=g_sum["n_mp"], obs=g_sum["n_obs"],
+                iters=g_sum["iters_run"], solver_syncs=g_sum["host_syncs"],
+                conformal_scales=sg, max_centre_diff_m=d_c,
+                median_point_diff_m=d_p, max_vel_bias_diff=d_vb,
+                chi2_rel_diff=d_chi2, chi2_before=g_sum["initial_chi2"],
+                chi2_after=g_sum["final_chi2"], ms=ms),
+                # the b_init call's 125 iterations are too slow to profile
+                # inside the smoke's time
+                None if kw["b_init"] else device_profile(
+                    lambda: ba.full_inertial_ba(start("cuda")[0], iters=100,
+                                                **kw)))
+            if not kw["b_init"]:
+                solved = c_map
+
+        # ---- the full-objective transform gain --------------------------
+        # on the map full_inertial_ba (b_init off) solved on the CPU: the
+        # window as built is far from its optimum
+        Rgw = so3.exp(np.float32([0.05, -0.02, 0.1]))
+        d_gain, gains = 0.0, {}
+        for name, R, s in (("identity", I3, 1.0), ("rotated_0.3", Rgw, 0.3)):
+            g, c = (ba.whole_map_transform_gain(solved[0], R, s, device=d)
+                    for d in (None, "cpu"))
+            check(all(np.isfinite(g)), f"whole_map_transform_gain {name}: "
+                                       f"{g}")
+            d_gain = max(d_gain, *(abs(a - b) / b for a, b in zip(g, c)))
+            gains[name] = g
+        c0, c1 = gains["identity"]
+        check(d_gain <= EST_GAIN_REL and abs(c1 - c0) <= 1e-5 * c0,
+              f"whole_map_transform_gain cuda vs cpu: {d_gain} relative; "
+              f"{gains}")
+        m = solved[0]
+        report("whole_map_transform_gain", dict(
+            chi2=c0, chi2_rotated_0p3=gains["rotated_0.3"][1],
+            max_rel_diff=d_gain,
+            ms=host_ms(lambda _: ba.whole_map_transform_gain(m, Rgw, 0.3))),
+            device_profile(lambda: ba.whole_map_transform_gain(m, Rgw, 0.3)))
+
+        # ---- the conformal scale search on a mis-scaled map -------------
+        def misscaled():
+            mm = copy.deepcopy(solved)
+            mm[0].apply_scaled_rotation(I3, INIT_SCALE, scale_vel=True)
+            return mm
+
+        g_map, c_map = misscaled(), misscaled()
+        s_g = ba.conformal_scale_refine(g_map[0], lo=0.3)
+        s_c = ba.conformal_scale_refine(c_map[0], lo=0.3, device="cpu")
+        d_c = float(np.abs(centres(g_map) - centres(c_map)).max())
+        check(abs(s_g - s_c) <= EST_SCALE_REL * s_c and d_c <= EST_CENTRE_M,
+              f"conformal_scale_refine cuda vs cpu: {s_g} vs {s_c}, centres "
+              f"{d_c} m")
+        check(abs(s_g * INIT_SCALE - 1.0) < 0.1,
+              f"conformal_scale_refine: {s_g} undoes x{INIT_SCALE} to "
+              f"x{s_g * INIT_SCALE}")
+        report("conformal_scale_refine", dict(
+            scale=s_g, scale_cpu=s_c, max_centre_diff_m=d_c,
+            ms=host_ms(lambda mm: ba.conformal_scale_refine(mm[0], lo=0.3),
+                       setup=misscaled)),
+            device_profile(lambda: ba.conformal_scale_refine(
+                misscaled()[0], lo=0.3)))
+
+    # ------------------------------------------------------------------
+    def system_settings(self, out_dir):
+        """configs/euroc.yaml with the distortion zeroed (the corridor is
+        rendered undistorted), the corridor IMU's noise densities and a
+        2 s IMU initialization time, written to out_dir; its path."""
+        import re
+
+        from ppg_slam_tpu_torch import testing
+
+        with open(os.path.join(ROOT, "configs", "euroc.yaml")) as f:
+            text = f.read()
+        for key, val in (("Camera.k1", 0.0), ("Camera.k2", 0.0),
+                         ("Camera.p1", 0.0), ("Camera.p2", 0.0),
+                         ("IMU.NoiseGyro", testing.CORRIDOR_NOISE_GYRO),
+                         ("IMU.NoiseAcc", testing.CORRIDOR_NOISE_ACC),
+                         ("IMU.IniTime", SYS_IMU_INI_TIME)):
+            text, n = re.subn(rf"^{re.escape(key)}:.*$", f"{key}: {val!r}",
+                              text, flags=re.M)
+            check(n == 1, f"euroc.yaml has no single {key}")
+        path = os.path.join(out_dir, "euroc_corridor.yaml")
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    def drive_system(self, system, corridor, n_frames, on_frame=None):
+        """Track the first n_frames of the corridor through
+        System.track_monocular; per frame, the host ms and the profiler's
+        stage times it added. on_frame(k) runs before frame k."""
+        from ppg_slam_tpu_torch.utils import profiler
+
+        rows = []
+        last_t = -1.0
+        imu = corridor.imu
+        for k in range(n_frames):
+            if on_frame is not None:
+                on_frame(k)
+            t = corridor.times[k]
+            meas = imu[(imu[:, 6] > last_t) & (imu[:, 6] <= t + 1e-9)]
+            last_t = t
+            before = {n: s.total for n, s in profiler.stats.items()}
+            t0 = time.perf_counter()
+            system.track_monocular(corridor.frames[k], t, meas)
+            ms = (time.perf_counter() - t0) * 1e3
+            stages = {n: (s.total - before.get(n, 0.0)) * 1e3
+                      for n, s in profiler.stats.items()}
+            rows.append(dict(ms=ms, stages=stages, state=system.state,
+                             n_kf=system.map.n_keyframes(),
+                             n_mp=system.map.n_map_points(),
+                             imu=system.map.imu_initialized))
+        return rows
+
+    def phase9_system(self):
+        """The port's System on the rendered corridor at EuRoC width in the
+        serving configuration, on the card: tracks through monocular and
+        IMU initialization, within SYS_ATE_M of the truth, every
+        estimator call on CUDA, the fused kernels launched once an
+        extracted frame. Then the first SYS_F32_FRAMES frames in f32 on
+        CUDA and on the CPU: the same initialization."""
+        import tempfile
+
+        import numpy as np
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.pipeline import OK, System
+        from ppg_slam_tpu_torch.pipeline.system import load_settings
+        from ppg_slam_tpu_torch.utils import profiler
+        from ppg_slam_tpu_torch.utils.evaluation import align_and_ate
+
+        t_phase = time.time()
+        voc = os.path.join(ROOT, "assets", "voc_euroc_9x3.npz")
+        tbc = load_settings(os.path.join(ROOT, "configs", "euroc.yaml"))[
+            "Tbc"]
+        corridor = testing.render_corridor(n_frames=SYS_FRAMES, seed=7,
+                                           Tbc=tbc)
+        say(f"  corridor: {SYS_FRAMES} frames 752x480 rendered, "
+            f"{len(corridor.imu)} IMU samples, "
+            f"{time.time() - t_phase:.1f} s")
+
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            settings = self.system_settings(tmp_dir)
+            system = System(voc, settings, active_loop_closing=False,
+                            desc_transfer="device", compute_dtype="bf16")
+            check(system.device.type == "cuda"
+                  and system.tracking.device.type == "cuda"
+                  and system.local_mapping.device.type == "cuda",
+                  "System did not default to the card")
+            profiler.reset()
+            busy = {}
+            first_busy = SYS_FRAMES - SYS_BUSY_FRAMES
+
+            def on_frame(k):
+                if k == first_busy:
+                    torch.cuda.synchronize()
+                    busy["prof"] = profile(
+                        activities=[ProfilerActivity.CUDA])
+                    busy["prof"].__enter__()
+                    busy["t0"] = time.perf_counter()
+
+            self.reset_launches()
+            rows = self.drive_system(system, corridor, SYS_FRAMES, on_frame)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - busy["t0"]) * 1e3
+            busy["prof"].__exit__(None, None, None)
+            self.sys_launches = self.read_launches(SYS_FRAMES,
+                                                   "System main path")
+            busy_ms = sum(e.time_range.elapsed_us()
+                          for e in busy["prof"].events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          ) / 1e3
+            tr = system.tracking
+            dm = tr._dev_matcher
+            devices = {k: v for k, v in profiler.counters.items()
+                       if k.startswith("device.")}
+
+        states = [r["state"] for r in rows]
+        check(OK in states, "tracking never initialized")
+        k_init = states.index(OK)
+        k_imu = next((k for k, r in enumerate(rows) if r["imu"]), None)
+        check(states[-1] == OK, f"last state {states[-1]}, not OK; state "
+              f"events {tr.state_events}")
+        check(k_imu is not None, "the IMU never initialized")
+        check(dm is not None and dm.device.type == "cuda"
+              and dm.n_dispatches > 0,
+              "tracking's DeviceMatcher did not run on the card")
+        off_card = {k: v for k, v in devices.items()
+                    if not k.endswith(".cuda")}
+        check(not off_card, f"estimator calls off the card: {off_card}")
+        never = [n for n in SYS_DEVICE_CALLS
+                 if f"device.{n}.cuda" not in devices]
+        check(not never, f"never ran on the System's path: {never}")
+        per_call = {n: [round(r["stages"][f"tracking.{n}"], 1) for r in rows
+                        if r["stages"].get(f"tracking.{n}", 0.0) > 0.0]
+                    for n in ("imu_init", "full_inertial_ba")}
+        check(per_call["full_inertial_ba"], "full_inertial_ba never ran")
+        kfs = sorted((kf for kf in system.map.all_keyframes()
+                      if not kf.is_bad()), key=lambda kf: kf.timestamp)
+        est, gt = [], []
+        for kf in kfs:
+            Rcw, tcw = corridor.cam_poses[int(round(kf.timestamp
+                                                     * corridor.fps))]
+            est.append(kf.camera_center())
+            gt.append(-Rcw.T @ tcw)
+        ate = align_and_ate(np.stack(est), np.stack(gt), with_scale=True)
+        check(np.isfinite(ate.rmse) and ate.rmse < SYS_ATE_M,
+              f"KF-ATE {ate.rmse} m against the truth (limit {SYS_ATE_M})")
+
+        # per-frame split over the steady inertial frames
+        steady = [r for k, r in enumerate(rows)
+                  if k_imu is not None and k > k_imu + 5]
+        split = {}
+        for name, keys in (("frame", None),
+                           ("extract", ("tracking.extract",)),
+                           ("preintegrate", ("tracking.preintegrate",)),
+                           ("match", ("tracking.match",)),
+                           ("pose", ("tracking.pose_opt",
+                                     "tracking.pose_inertial")),
+                           ("keyframe", ("tracking.keyframe",))):
+            vals = [r["ms"] if keys is None else
+                    sum(r["stages"].get(n, 0.0) for n in keys)
+                    for r in steady]
+            split[name] = statistics.median(vals) if vals else float("nan")
+            split[name + "_mean"] = (statistics.fmean(vals) if vals
+                                     else float("nan"))
+        events = [(e["kind"], round(e["t"], 2), round(e["scale"], 4),
+                   e["applied"]) for e in tr.init_events]
+        self.sys_result = dict(split=split, busy_ms=busy_ms, wall_ms=wall_ms)
+        say(f"  System serving: init frame {k_init}, IMU init frame {k_imu}"
+            f", {len(kfs)} KFs, {system.map.n_map_points()} map points; "
+            f"KF-ATE {ate.rmse:.4f} m (scale {ate.scale:.4f}); events "
+            f"{events}; IMU-init calls {per_call['imu_init']} ms, "
+            f"full_inertial_ba in them {per_call['full_inertial_ba']} ms; "
+            f"launches {self.sys_launches}; DeviceMatcher {dm.n_dispatches} "
+            f"matches on {dm.device}; estimator calls by device {devices}")
+        say(f"  System serving per steady frame ({len(steady)} frames, "
+            f"median host ms): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in split.items())
+            + f"; device busy {busy_ms:.1f} of {wall_ms:.1f} ms over "
+            f"{SYS_BUSY_FRAMES} frames ({100 * busy_ms / wall_ms:.1f} %) "
+            f"[{self.card}]")
+        say("  System stages over the run:\n" + "\n".join(
+            "    " + line for line in profiler.report().splitlines()))
+        say(f"  init_events {tr.init_events}")
+
+        # the first frames again in f32 (host descriptors), CUDA and CPU
+        out, t_rerun = {}, {}
+        for dev in (None, "cpu"):
+            t0 = time.time()
+            with tempfile.TemporaryDirectory() as d:
+                s32 = System(voc, self.system_settings(d),
+                             active_loop_closing=False, device=dev)
+                r32 = self.drive_system(s32, corridor, SYS_F32_FRAMES)
+            st = [r["state"] for r in r32]
+            check(OK in st, f"f32 rerun on {dev or 'cuda'}: no "
+                            "initialization")
+            out[dev or "cuda"] = (st.index(OK), r32[-1]["n_mp"],
+                                  r32[-1]["n_kf"])
+            t_rerun[dev or "cuda"] = round(time.time() - t0, 1)
+        (k_g, mp_g, kf_g), (k_c, mp_c, kf_c) = out["cuda"], out["cpu"]
+        check(k_g == k_c and abs(mp_g - mp_c) <= SYS_MP_REL * mp_c,
+              f"f32 rerun: init frame {k_g} vs {k_c} on the CPU, map points"
+              f" {mp_g} vs {mp_c}")
+        say(f"phase 9 ok: System (serving) tracked {SYS_FRAMES} rendered "
+            f"752x480 frames: init frame {k_init}, IMU init frame {k_imu}, "
+            f"last state OK, KF-ATE {ate.rmse:.4f} m < "
+            f"{SYS_ATE_M} m; fused kernels once a frame; "
+            f"estimators on the card; f32 rerun of {SYS_F32_FRAMES} frames: "
+            f"init frame {k_g} (CPU {k_c}), map points {mp_g} (CPU {mp_c})"
+            f", KFs {kf_g} (CPU {kf_c}), rerun s {t_rerun}; in "
+            f"{time.time() - t_phase:.1f} s "
+            f"[{self.card}]")
+
     # ------------------------------------------------------------------
     def kernel_table(self):
         rows = [self.sampler_rows[n] for n in MAIN_SIZES]
@@ -998,8 +1430,10 @@ class Smoke:
             "route": "cuda",
             "source": "ppg_slam_tpu_torch/kernels/nearest_binary_packed.cu",
             "replaces": "ppg_slam_tpu/ops/sampling.py:104",
-            # the main path launches the fused kernels below instead
-            "launches": self.launches["nearest_binary_packed"],
+            # the main path (the System, phase 9) launches the fused
+            # kernels below instead
+            "launches": self.sys_launches["nearest_binary_packed"],
+            "launches_frontend": self.launches["nearest_binary_packed"],
             "on_main_path": False,
             "max_abs_err": self.max_abs_err,
             # one frame's four sampler calls at their former main-path sizes
@@ -1019,7 +1453,8 @@ class Smoke:
                 "stage": {"pair_probe": "ppg_slam_tpu/ops/pairs.py:67",
                           "line_validate": "ppg_slam_tpu/ops/pairs.py:197"
                           }[name],
-                "launches": self.launches[name],
+                "launches": self.sys_launches[name],
+                "launches_frontend": self.launches[name],
                 "on_main_path": True,
                 "max_abs_err": self.fused_err[name],
                 "ms": row["ms"],
@@ -1048,7 +1483,7 @@ def main() -> int:
     phases = [smoke.phase1_card, smoke.phase2_build,
               smoke.phase3_kernel_parity, smoke.phase4_main_f32,
               smoke.phase5_serving, smoke.phase6_batch, smoke.phase7_tumvi,
-              smoke.phase8_estimator]
+              smoke.phase8_estimator, smoke.phase9_system]
     for k, phase in enumerate(phases, 1):
         try:
             phase()

@@ -5,14 +5,23 @@ names, so every module here has a counterpart of the same path there. It
 imports `torch` and never `jax` or `ppg_slam_tpu`.
 
 Package layout (ported so far):
-  geometry/   camera models (pinhole + radtan, Kannala-Brandt-8)
+  geometry/   camera models (pinhole + radtan, Kannala-Brandt-8), SO(3),
+              SE(3), two-view initialization
   models/     the PPG CNNs as one NCHW `nn.Module`
   ops/        device ops: NMS, heat refine/remap, pair probing, line
               validation, descriptor sampling, gated matching
   kernels/    hand-written CUDA kernels, built with nvcc at first use
   frontend/   the PPG extractor (device decode + native host graph finish)
   native/     C++ host graph finish, loaded with ctypes
-  pipeline/   settings parsing
+  imu/        IMU preintegration
+  estimator/  pose and pose-inertial optimization, bundle adjustment,
+              inertial initialization
+  worldmap/   the host map (keyframes, map points, PPG edges and colines)
+  bow/        the DBoW3 vocabulary
+  matching/   the host matcher, the device gated-match service, PnP
+  pipeline/   System, Tracking, LocalMapping, inactive LoopClosing, settings
+  utils/      profiling, trajectory evaluation
+  testing.py  fixtures shared by the tests and chip_smoke.py
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

@@ -12,15 +12,17 @@ observation erasure, MapEdge re-validation, coline outlier culling).
     window, <=200 single fixed observers, l0=1e-2/1e0, depth-aware chi2)
   * global_bundle_adjustment - OptimizerGBA.cpp:24-289 (results to the GBA
     scratch fields when loop_kf != 0)
+  * full_inertial_ba         - OptimizerGBA.cpp:291-683, interleaved with
+    the reference's conformal (global-scale) line search
+  * whole_map_transform_gain / conformal_scale_refine - the full-objective
+    checks behind IMU initialization and scale refinement
 
 Problems are solved at their exact sizes: the reference's pow2 shape
 buckets, slot-major layout and mesh sharding are XLA/TPU workarounds.
-full_inertial_ba and its conformal scale search are not ported yet
-(ROADMAP.md).
 
-`pose_cg_iters` and `backtrack` pass through to BAOptions; None keeps the
-reference's backend defaults (PCG(64) and backtracking on CUDA, Cholesky
-without backtracking on the CPU).
+The local and global BA entry points pass `pose_cg_iters` and `backtrack`
+through to BAOptions; None keeps the reference's backend defaults (PCG(64)
+and backtracking on CUDA, Cholesky without backtracking on the CPU).
 """
 
 from __future__ import annotations
@@ -37,7 +39,15 @@ from ..utils import profiler
 from ..worldmap.elements import MapPoint
 from ..worldmap.frame import KeyFrame, Rig
 from ..worldmap.map import Map
-from .ba_core import BAOptions, BAProblem, KFStates, empty_problem, solve_ba
+from .ba_core import (
+    _INDEX_FIELDS,
+    BAOptions,
+    BAProblem,
+    KFStates,
+    _chi2_only,
+    empty_problem,
+    solve_ba,
+)
 
 CHI2_MONO = 5.991
 
@@ -54,7 +64,9 @@ def _sqrt_info_psd(M: np.ndarray) -> np.ndarray:
 
 def _upload(arrays, device) -> list:
     """numpy arrays -> tensors on `device`, f32 data in one transfer."""
-    out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    # (ascontiguousarray makes a 0-d array 1-d; the reshape restores it)
+    out = [torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
+           for a in arrays]
     floats = [k for k, a in enumerate(out) if a.dtype == torch.float32]
     if floats and torch.device(device).type != "cpu":
         flat = torch.cat([out[k].reshape(-1) for k in floats]).to(device)
@@ -549,3 +561,279 @@ def global_bundle_adjustment(wmap: Map, iters: int = 20, loop_kf: int = 0,
                 mp.ba_global_for_kf = loop_kf
         wmap.info_map_change()
     return _summary(info, chi2s, len(kfs), len(mps), len(r_kf))
+
+
+# ---------------------------------------------------------------------------
+# the conformal (global-scale) mode: line search against the full objective
+# ---------------------------------------------------------------------------
+
+def _device_problem(prob: BAProblem, device) -> BAProblem:
+    """A host (numpy) problem on `device`, its index fields int64."""
+    p = BAProblem(*_upload(list(prob), device))
+    return p._replace(**{k: getattr(p, k).long() for k in _INDEX_FIELDS})
+
+
+def _conformal_scan(states: KFStates, points, prob: BAProblem, Rcb, tcb,
+                    cam, opts: BAOptions, sigmas) -> torch.Tensor:
+    """chi2 along the exact conformal (global-scale) curve: t, v and the
+    landmarks scaled about the origin keyframe's position by each sigma.
+    One _chi2_only a sigma, on the tensors' device; prob's index fields
+    int64 (_device_problem)."""
+    profiler.count_device("conformal_scan", points)
+    c = states.t[0]
+    out = []
+    for s in sigmas:
+        st = states._replace(t=c + (states.t - c) * s, v=states.v * s)
+        out.append(_chi2_only(st, c + (points - c) * s, prob, cam, Rcb, tcb,
+                              opts))
+    return torch.stack(out)
+
+
+def _conformal_best_scale(st: KFStates, pts, prob: BAProblem, rig: Rig,
+                          opts: BAOptions, syncs: list) -> float:
+    """Global-scale line search against the FULL objective (the reference's
+    ba.py:894-943): the Schur fold's coline diagonal makes the reduced
+    system look far stiffer along the vision-invariant conformal mode than
+    it is, so the damped GN cannot anneal a wrong monocular scale. Three
+    bracketed 13-point grid passes (one host read each, counted in
+    `syncs`) find the optimum; returns it, or 1.0 for no improvement."""
+    dev = pts.device
+    Rcb = torch.as_tensor(rig.Rcb, device=dev)
+    tcb = torch.as_tensor(rig.tcb, device=dev)
+
+    def scan(sigmas):
+        chis = _conformal_scan(
+            st, pts, prob, Rcb, tcb, rig.cam, opts,
+            torch.as_tensor(np.asarray(sigmas, np.float32), device=dev))
+        syncs[0] += 1
+        chis = chis.cpu().numpy()
+        # extreme sigmas can overflow chi2 to inf/NaN in f32; np.argmin
+        # returns the FIRST NaN index, which would steer the search into
+        # garbage: non-finite counts as +inf
+        return np.where(np.isfinite(chis), chis, np.inf)
+
+    G = 13
+    sig1 = np.exp(np.linspace(np.log(0.25), np.log(4.0), G))
+    chis = scan(sig1)
+    k = int(np.argmin(chis))
+    lo, hi = sig1[max(k - 1, 0)], sig1[min(k + 1, len(sig1) - 1)]
+    sig2 = np.exp(np.linspace(np.log(lo), np.log(hi), G))
+    chis2 = scan(sig2)
+    k2 = int(np.argmin(chis2))
+    lo2 = sig2[max(k2 - 1, 0)]
+    hi2 = sig2[min(k2 + 1, len(sig2) - 1)]
+    sig3 = np.concatenate([[1.0], np.exp(np.linspace(
+        np.log(lo2), np.log(hi2), G - 1))])
+    chis3 = scan(sig3)
+    base = float(chis3[0])
+    k3 = int(np.argmin(chis3))
+    s = float(sig3[k3])
+    if float(chis3[k3]) >= base * (1.0 - 1e-4) or abs(s - 1.0) < 1e-3:
+        return 1.0
+    return s
+
+
+def _apply_conformal(st: KFStates, pts: np.ndarray, s: float):
+    """Host states/landmarks scaled about the origin KF's position."""
+    c = st.t[0]
+    return (st._replace(t=c + (st.t - c) * s, v=st.v * s),
+            c + (pts - c) * s)
+
+
+def _gather_full_problem(wmap: Map):
+    """The live map's FIBA residual set as host arrays (no solve):
+    (states, points, prob, kfs, mps), or None when the map is too small."""
+    rig = wmap.rig
+    kfs = sorted(wmap.all_keyframes(), key=lambda k: k.mnId)
+    mps = wmap.all_map_points()
+    if len(kfs) < 3 or not mps:
+        return None
+    kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+    mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+    states = _body_states(kfs, rig)
+    points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+    r_kf, r_mp, r_uv, _ = _gather_reproj(kfs, kf_index, mps, mp_index)
+    c_idx, c_w, _ = _gather_colines(wmap, mp_index)
+    links = _gather_links(kfs, kf_index)
+    prob = _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w, links=links)
+    return states, points, prob, kfs, mps
+
+
+def whole_map_transform_gain(wmap: Map, Rgw: np.ndarray, scale: float,
+                             device=None):
+    """The FULL visual-inertial chi2 of the current map and of a candidate
+    whole-map transform (ApplyScaledRotation semantics: R' = Rgw R,
+    t' = s Rgw t, v' = s Rgw v, X' = s Rgw X), without mutating the map.
+    Returns (chi2_now, chi2_cand); (0.0, inf) where either is not finite;
+    None when the map is too small to evaluate (callers decide)."""
+    device = resolve_device(device)
+    g = _gather_full_problem(wmap)
+    if g is None:
+        return None
+    states, points, prob, _, _ = g
+    rig = wmap.rig
+    opts = BAOptions(reproj_kernel="huber")
+    Rcb, tcb = _upload([rig.Rcb, rig.tcb], device)
+    prob_d = _device_problem(prob, device)
+    one = torch.ones(1, dtype=torch.float32, device=device)
+    Rgw = np.asarray(Rgw, np.float32)
+    s = np.float32(scale)
+    st1 = KFStates(np.einsum("ij,njk->nik", Rgw, states.R),
+                   s * states.t @ Rgw.T, s * states.v @ Rgw.T,
+                   states.bg, states.ba)
+    pts1 = s * points @ Rgw.T
+    chis = []
+    for st, pts in ((states, points), (st1, pts1)):
+        dev = _upload(list(st) + [pts], device)
+        chis.append(_conformal_scan(KFStates(*dev[:5]), dev[5], prob_d, Rcb,
+                                    tcb, rig.cam, opts, one)[0])
+    c0, c1 = (float(c) for c in torch.stack(chis).cpu())
+    if not (np.isfinite(c0) and np.isfinite(c1)):
+        return 0.0, float("inf")
+    return c0, c1
+
+
+def conformal_scale_refine(wmap: Map, lo: float = 0.4, hi: float = 2.5,
+                           device=None) -> float:
+    """Full-objective global-scale correction of a live inertial map: the
+    FIBA residual set gathered (no GN solve) and its one-dimensional
+    conformal mode line-searched against the TOTAL chi2. Applies a
+    correction beyond 1 % and inside [lo, hi] through ApplyScaledRotation
+    and returns it (1.0 = the map is left as it is)."""
+    device = resolve_device(device)
+    g = _gather_full_problem(wmap)
+    if g is None:
+        return 1.0
+    states, points, prob, _, _ = g
+    opts = BAOptions(reproj_kernel="huber")
+    dev = _upload(list(states) + [points], device)
+    s = _conformal_best_scale(KFStates(*dev[:5]), dev[5],
+                              _device_problem(prob, device), wmap.rig, opts,
+                              [0])
+    # sub-percent rescalings are within the estimator's own noise, and a
+    # correction outside [lo, hi] is evidence of a degenerate objective
+    if abs(s - 1.0) <= 0.01 or not (lo <= s <= hi):
+        return 1.0
+    wmap.apply_scaled_rotation(np.eye(3, dtype=np.float32), s,
+                               scale_vel=True)
+    wmap.info_map_change()
+    return s
+
+
+def full_inertial_ba(wmap: Map, iters: int = 100, loop_kf: int = 0,
+                     b_init: bool = False, prior_g: float = 1e2,
+                     prior_a: float = 1e6, abort_check=None, map_lock=None,
+                     conformal_shrink_cum: float = 1.0, device=None,
+                     backtrack=None) -> Optional[dict]:
+    """Visual-inertial global BA (OptimizerGBA.cpp:291-683). map_lock
+    guards the host gather/write phases (see global_bundle_adjustment).
+
+    b_init: one shared bias (the random-walk links made rigid). Bias priors
+    prior_g/prior_a hold the last keyframe. At <= 64 KFs the solve is the
+    reference's exact reduced solve (pose_cg_iters=0) for the full `iters`;
+    beyond, 25 iterations at the device default. backtrack: None = the
+    device default (on for CUDA, off on the CPU); a comparison of two
+    devices names it. Each solve is followed by the conformal line search
+    (up to 3 rounds) and a re-solve from the rescaled state.
+
+    conformal_shrink_cum: cumulative DOWNWARD clamp of that annealing
+    (growth is free); 1.0 = shrink-free, the first IMU init passes 0.6.
+    loop_kf != 0 writes the gba_* fields instead of the map. Returns the
+    solve summary (_summary, chi2 from the first solve's start to the last
+    solve's end, iterations and host syncs summed, `conformal_scales` the
+    applied sigmas), or None where there was nothing to solve."""
+    device = resolve_device(device)
+    guard = map_lock if map_lock is not None else nullcontext()
+    rig = wmap.rig
+    with guard:
+        kfs = sorted(wmap.all_keyframes(), key=lambda k: k.mnId)
+        mps = wmap.all_map_points()
+        if len(kfs) < 2 or not mps:
+            return None
+        kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+        mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+        states = _body_states(kfs, rig)
+        points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+        r_kf, r_mp, r_uv, _ = _gather_reproj(kfs, kf_index, mps, mp_index)
+        c_idx, c_w, _ = _gather_colines(wmap, mp_index)
+        links = _gather_links(kfs, kf_index)
+        if links is not None and b_init:
+            # single shared bias: make the random-walk links rigid
+            links[14] = np.broadcast_to(np.eye(3, dtype=np.float32) * 1e4,
+                                        links[14].shape).copy()
+            links[15] = np.broadcast_to(np.eye(3, dtype=np.float32) * 1e4,
+                                        links[15].shape).copy()
+        # bias priors on the LAST keyframe (OptimizerGBA.cpp:466-472)
+        bias_priors = ([kf_index[kfs[-1].mnId]], [prior_g], [prior_a])
+        prob = _pad_problem(r_kf, r_mp, r_uv, c_idx, c_w, links=links,
+                            bias_priors=bias_priors)
+
+    kf_dof = np.ones((len(kfs), 15), bool)
+    kf_dof[0, :6] = False  # origin pose fixed; velocity/bias free
+    small = len(kfs) <= 64
+    opts = BAOptions(iters=iters if small else min(iters, 25), lambda0=1e-5,
+                     reproj_kernel="huber",
+                     pose_cg_iters=0 if small else None,
+                     backtrack=backtrack)
+    free = np.ones(len(mps), bool)
+    with profiler.timer("fiba.solve"):
+        st, pts, info = _padded_solve(states, points, prob, kf_dof, free,
+                                      rig, opts, device,
+                                      abort_check=abort_check)
+    initial = info["chi2_hist"][0]
+    iters_run, syncs = info["iters_run"], [info["host_syncs"]]
+    prob_d = _device_problem(prob, device)
+    # conformal-scale annealing: line-search the global-scale mode the
+    # damped-GN fold cannot move, then let the solver re-polish; shrink
+    # steps are clamped (>= 0.75 a step, cumulative >= conformal_shrink_cum)
+    # because the attenuation bias only ever pulls the mode DOWN
+    cum = 1.0
+    scales = []
+    for _ in range(3):
+        s = _conformal_best_scale(st, pts, prob_d, rig, opts, syncs)
+        if s == 1.0:
+            break
+        if s < 1.0:
+            s = max(s, 0.75, conformal_shrink_cum / cum)
+            if s >= 0.999:
+                break
+        cum *= s
+        scales.append(s)
+        *st_np, pts_np = _fetch(*st, pts)
+        syncs[0] += 1
+        st_np, pts_np = _apply_conformal(KFStates(*st_np), pts_np, s)
+        with profiler.timer("fiba.solve"):
+            st, pts, info = _padded_solve(st_np, pts_np, prob, kf_dof, free,
+                                          rig, opts, device,
+                                          abort_check=abort_check)
+        iters_run += info["iters_run"]
+        syncs[0] += info["host_syncs"]
+
+    R, t, v, bg, ba, pts_np, chi2s = _fetch(
+        *st, pts, torch.stack([initial, info["final_chi2"]]))
+    with guard:
+        if loop_kf == 0:
+            _write_back_poses(kfs, KFStates(R, t, v, bg, ba), rig,
+                              np.ones(len(kfs), bool), velocities=True)
+            for j, mp in enumerate(mps):
+                mp.pos = pts_np[j].copy()
+                mp.update_normal_and_depth()
+            _coline_edge_cleanup(wmap, mps)
+        else:
+            for i, kf in enumerate(kfs):
+                Rbw = R[i].T
+                tbw = -Rbw @ t[i]
+                kf.gba_Rcw = rig.Rcb @ Rbw
+                kf.gba_tcw = rig.Rcb @ tbw + rig.tcb
+                kf.gba_vel = v[i].copy()
+                kf.gba_bias = np.concatenate([bg[i], ba[i]]).astype(
+                    np.float32)
+                kf.ba_global_for_kf = loop_kf
+            for j, mp in enumerate(mps):
+                mp.gba_pos = pts_np[j].copy()
+                mp.ba_global_for_kf = loop_kf
+        wmap.info_map_change()
+    out = _summary(dict(iters_run=iters_run, host_syncs=syncs[0]), chi2s,
+                   len(kfs), len(mps), len(r_kf))
+    out["conformal_scales"] = scales
+    return out

@@ -41,6 +41,7 @@ from torch.func import jacfwd, vmap
 from ..geometry import so3
 from ..geometry.cameras import CameraModel
 from ..imu.preintegration import GRAVITY_VALUE
+from ..utils import profiler
 from .robust import kernel_rho, kernel_weight
 
 # state block layout
@@ -720,6 +721,7 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
     opts.lambda0, ba._padded_solve), iters_run, the final per-observation
     chi2 and depth for the callers' outlier classification, and host_syncs
     (device scalars the host read)."""
+    profiler.count_device("solve_ba", points)
     n = states.R.shape[0]
     m = points.shape[0]
     n15 = n * DOF

@@ -23,6 +23,7 @@ import torch
 
 from ..geometry import so3
 from ..imu.preintegration import GRAVITY_VALUE
+from ..utils import profiler
 
 
 class InertialInitProblem(NamedTuple):
@@ -125,6 +126,7 @@ def inertial_optimization(R, t, v, bg0, ba0, Rwg0, scale0,
     (3,) shared bias inits; fix_vel_bias=True gives the scale-refinement
     variant.
     """
+    profiler.count_device("inertial_optimization", t)
     dtype, dev = t.dtype, t.device
     n = t.shape[0]
     n_dof = 3 * n + 9  # v..., bg, ba, gdir(2), logs(1)

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 from ..geometry import so3
 from ..geometry.cameras import CameraModel
+from ..utils import profiler
 from .ba_core import (DOF, S_BA, S_BG, S_V, inertial_linearization,
                       prior15_linearization)
 from .robust import huber_weight
@@ -60,6 +61,7 @@ def _reproj_tcw_batch(Rcw, tcw, X, uv, cam: CameraModel, want_jac: bool):
 
 def pose_optimization(Rcw0, tcw0, X, uv, valid, cam: CameraModel):
     """Returns (Rcw, tcw, inlier (O,), n_inliers). X: (O, 3) world points."""
+    profiler.count_device("pose_optimization", X)
     dtype, dev = tcw0.dtype, tcw0.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
@@ -205,6 +207,7 @@ def pose_inertial_optimization(
     fix_prev=True reproduces PoseInertialOptimizationLastKeyFrame (previous
     state fixed, no prior edge); otherwise LastFrame (prev free + 15-D prior).
     """
+    profiler.count_device("pose_inertial_optimization", X)
     dtype, dev = X.dtype, X.device
 
     # cap the prior information spectrum at 1e7 (sigma floor 3e-4): the

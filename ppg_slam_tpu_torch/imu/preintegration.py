@@ -25,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..geometry import so3
+from ..utils import profiler
 
 GRAVITY_VALUE = 9.81  # reference IMU.h:22
 
@@ -76,6 +77,7 @@ def integrate(acc: torch.Tensor, gyr: torch.Tensor, dt: torch.Tensor,
     nga/nga_walk: (6,) diagonal noise [gyro(3), acc(3)] already scaled by
     sqrt(freq) resp. 1/sqrt(freq) (reference System.cpp:97-98).
     """
+    profiler.count_device("integrate", acc)
     dtype, dev = acc.dtype, acc.device
     bg, ba = bias[:3], bias[3:]
     accs = acc - ba

@@ -1,4 +1,11 @@
-"""Settings files -> CameraModel (port of ppg_slam_tpu/pipeline/system.py:29-72).
+"""System facade (the reference System, system/src/System.cpp) and its
+settings files: a port of ppg_slam_tpu/pipeline/system.py.
+
+`System` loads the vocabulary and the settings, builds the map, the
+extractor and the pipeline modules, routes frames and IMU, and writes the
+TUM-format trajectories. Everything it builds runs on its `device` (CUDA
+unless the caller names another). Options whose modules are not ported yet
+raise NotImplementedError naming their ROADMAP.md item.
 
 The settings are OpenCV FileStorage YAML (`%YAML:1.0`). OpenCV is not a
 dependency of the port, so `load_settings` parses the subset the configs use:
@@ -10,11 +17,13 @@ arrays of the block's `dt` type.
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..device import resolve_device
 from ..geometry.cameras import CAM_FISHEYE, CAM_PINHOLE, CameraModel
 
 _MAT_DTYPES = {"f": np.float32, "d": np.float64, "i": np.int32,
@@ -120,3 +129,156 @@ def camera_from_settings(s: dict) -> CameraModel:
         kind=CAM_PINHOLE, fx=s["fx"], fy=s["fy"], cx=s["cx"], cy=s["cy"],
         dist=(s["k1"], s["k2"], s["p1"], s["p2"]),
         width=int(s["width"]), height=int(s["height"]), fps=s["fps"] or 20.0)
+
+
+def _not_ported(option: str, item: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"System({option}) needs {what}, which is not ported yet: "
+        f"ROADMAP.md §1 item {item}")
+
+
+class System:
+    def __init__(self, vocabulary_path: Optional[str], settings_path: str,
+                 weights_path: Optional[str] = None, use_viewer: bool = False,
+                 active_loop_closing: bool = True,
+                 viewer_out_dir: Optional[str] = None,
+                 viewer_every: int = 10,
+                 async_frontend: bool = False, prefetch_batch: int = 4,
+                 prefetch_depth: int = 2,
+                 threaded_gba: bool = False,
+                 async_mapping: bool = False,
+                 desc_transfer: str = "f32", compute_dtype: str = "f32",
+                 load_map_path: Optional[str] = None, device=None):
+        """The reference signature, plus `device`. async_mapping: local
+        mapping on its own consumer thread (the reference's thread
+        deployment). desc_transfer="device" + compute_dtype="bf16" is the
+        serving configuration (descriptors stay on the device for gated
+        matching). Not ported yet, and refused: active_loop_closing=True
+        (item 11.1), threaded_gba=True and async_frontend=True (11.3),
+        use_viewer=True (11.6), load_map_path (11.5)."""
+        from ..bow import Vocabulary
+        from ..frontend.extractor import PPGExtractor
+        from ..worldmap import Map, Rig
+        from ..worldmap.elements import MapEdge
+        from .local_mapping import LocalMapping
+        from .loop_closing import LoopClosing
+        from .tracking import Tracking
+
+        if active_loop_closing:
+            raise _not_ported("active_loop_closing=True", "11.1",
+                              "loop closing")
+        if threaded_gba:
+            raise _not_ported("threaded_gba=True", "11.3",
+                              "the background global BA")
+        if async_frontend:
+            raise _not_ported("async_frontend=True", "11.3",
+                              "the frame prefetcher")
+        if use_viewer:
+            raise _not_ported("use_viewer=True", "11.6", "the viewer")
+        if load_map_path:
+            raise _not_ported("load_map_path", "11.5", "map serialization")
+        self.device = resolve_device(device)
+        s = load_settings(settings_path)
+        cam = camera_from_settings(s)
+        MapEdge.view_cos_th = float(s["view_cos_th"])
+        Map.imu_ini_time = float(s["imu_ini_time"])
+        rig = Rig(cam, Tbc=s["Tbc"], noise_gyro=s["noise_gyro"],
+                  noise_acc=s["noise_acc"], walk_gyro=s["walk_gyro"],
+                  walk_acc=s["walk_acc"], freq=s["imu_freq"])
+        voc = (Vocabulary.load(vocabulary_path)
+               if vocabulary_path and os.path.exists(vocabulary_path)
+               else None)
+        self.map = Map(rig, vocabulary=voc)
+        self.extractor = PPGExtractor(cam, weights_path,
+                                      desc_transfer=desc_transfer,
+                                      compute_dtype=compute_dtype,
+                                      device=self.device)
+        self.loop_closing = LoopClosing(self.map, active=False)
+        self.local_mapping = LocalMapping(self.map,
+                                          loop_closer=self.loop_closing,
+                                          device=self.device)
+        if async_mapping:
+            self.local_mapping.start()
+        self.tracking = Tracking(self.map, self.extractor,
+                                 local_mapper=self.local_mapping,
+                                 device=self.device)
+        self.local_mapping.tracking = self.tracking
+        self.loop_closing.local_mapper = self.local_mapping
+
+    # ------------------------------------------------------------------
+    def feed_frame(self, image: np.ndarray) -> None:
+        """Stage a future frame's extraction (async front-end). A no-op
+        here: async_frontend is not ported, so every frame is extracted in
+        track_monocular."""
+
+    def track_monocular(self, image: np.ndarray, timestamp: float,
+                        imu: Optional[np.ndarray] = None):
+        """System::TrackMonocular (System.cpp:122-143). imu rows:
+        (ax, ay, az, wx, wy, wz, t)."""
+        if imu is not None and len(imu):
+            self.tracking.grab_imu(imu)
+        return self.tracking.grab_image(image, timestamp)
+
+    def poll_background(self) -> None:
+        """Apply finished background-GBA results at a safe point. A no-op
+        here: there is no background GBA without loop closing."""
+
+    @property
+    def state(self) -> int:
+        return self.tracking.state
+
+    # ------------------------------------------------------------------
+    # trajectory writers (reference Viewer.cpp:853-959, TUM body-frame format)
+    # ------------------------------------------------------------------
+    def save_trajectory(self, path: str) -> None:
+        from ..geometry import so3
+
+        tr = self.tracking
+        rig = self.map.rig
+        with open(path, "w") as f:
+            for (Rcr, tcr), ref, ts, lost in zip(
+                    tr.rel_poses, tr.references, tr.frame_times,
+                    tr.lost_flags):
+                if lost:
+                    continue
+                kf = ref
+                Rrw, trw = np.eye(3, dtype=np.float32), np.zeros(
+                    3, np.float32)
+                while kf.is_bad() and kf.Tcp is not None:
+                    Rcp, tcp = kf.Tcp
+                    Rrw = Rcp @ Rrw  # accumulate relative chain
+                    trw = Rcp @ trw + tcp
+                    kf = kf.prev_kf
+                Rcw = Rcr @ Rrw @ kf.Rcw
+                tcw = Rcr @ (Rrw @ kf.tcw + trw) + tcr
+                # body pose Twb = (Tbc * Tcw)^-1
+                Rbw = rig.Rbc @ Rcw
+                tbw = rig.Rbc @ tcw + rig.tbc
+                Rwb = Rbw.T
+                twb = -Rwb @ tbw
+                q = so3.matrix_to_quat(Rwb.astype(np.float32))
+                f.write(f"{ts:.9f} {twb[0]:.9f} {twb[1]:.9f} {twb[2]:.9f} "
+                        f"{q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}\n")
+
+    def save_keyframe_trajectory(self, path: str) -> None:
+        from ..geometry import so3
+
+        kfs = sorted(self.map.all_keyframes(), key=lambda k: k.mnId)
+        with open(path, "w") as f:
+            for kf in kfs:
+                Rwb = kf.imu_rotation()
+                twb = kf.imu_position()
+                q = so3.matrix_to_quat(Rwb.astype(np.float32))
+                f.write(f"{kf.timestamp:.9f} {twb[0]:.9f} {twb[1]:.9f} "
+                        f"{twb[2]:.9f} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} "
+                        f"{q[3]:.9f}\n")
+
+    def shutdown(self, out_dir: str = ".", save_map_path: str = "") -> None:
+        """Drain and join the local-mapping consumer thread, then write
+        CameraTrajectory.txt and KeyFrameTrajectory.txt to out_dir."""
+        if save_map_path:
+            raise _not_ported("save_map_path", "11.5", "map serialization")
+        self.local_mapping.stop()
+        self.save_trajectory(os.path.join(out_dir, "CameraTrajectory.txt"))
+        self.save_keyframe_trajectory(
+            os.path.join(out_dir, "KeyFrameTrajectory.txt"))

@@ -221,6 +221,236 @@ class SyntheticSequence:
         return m[(m[:, 6] > t0) & (m[:, 6] <= t1 + 1e-9)]
 
 
+class SyntheticExtractor:
+    """Drop-in for PPGExtractor driven by a SyntheticSequence (the port's
+    copy of tests/synthetic_sequence.py's): the n-th `extract` call renders
+    the scene from the sequence's frame n, whatever the image.
+
+    desc_device: None gives host descriptors (desc_transfer="f32");
+    a device gives the device-descriptor form (desc_transfer="device"):
+    descriptors padded to 512 rows on that device, the host copy through
+    desc_fetch."""
+
+    def __init__(self, seq: SyntheticSequence, desc_device=None):
+        self.seq = seq
+        self.desc_device = desc_device
+        self.frame_idx = 0
+        self.last_ids = None
+
+    def extract(self, image):
+        i = self.frame_idx
+        self.frame_idx += 1
+        feats, ids = self.seq.scene.render(
+            *self.seq.frame_tcw(i), noise=self.seq.noise_px,
+            desc_noise=self.seq.desc_noise)
+        self.last_ids = ids
+        if self.desc_device is not None:
+            host = feats.desc
+            padded = torch.zeros((512, 256), dtype=torch.float32,
+                                 device=self.desc_device)
+            padded[:len(host)] = torch.from_numpy(host)
+            feats.desc_dev = padded
+            feats.desc = None
+            feats.desc_fetch = lambda h=host: h
+        return feats
+
+
+# ---------------------------------------------------------------------------
+# rendered corridor: real images the PPG nets respond to, with the IMU of
+# the trajectory (a numpy port of bench.py's wireframe corridor, which
+# draws with OpenCV; the port's machine has no OpenCV)
+# ---------------------------------------------------------------------------
+
+# the corridor's IMU: a consumer-grade unit, 10x EuRoC's noise densities
+# (bench.py E2E_NOISE_GYRO / E2E_NOISE_ACC)
+CORRIDOR_NOISE_GYRO = 1.7e-3
+CORRIDOR_NOISE_ACC = 2e-2
+
+
+def _resize_bilinear(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(h, w) bilinear resize of a 2-D array, pixel centres aligned."""
+    ys = np.clip((np.arange(h) + 0.5) * a.shape[0] / h - 0.5, 0,
+                 a.shape[0] - 1)
+    xs = np.clip((np.arange(w) + 0.5) * a.shape[1] / w - 0.5, 0,
+                 a.shape[1] - 1)
+    return _sample_bilinear(a.astype(np.float32), xs[None, :], ys[:, None])
+
+
+def _sample_bilinear(img: np.ndarray, x: np.ndarray, y: np.ndarray,
+                     border: float = 0.0) -> np.ndarray:
+    """img sampled at float pixel coordinates (x, y), bilinear; `border`
+    where the sample falls outside."""
+    h, w = img.shape
+    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    x = np.clip(x, 0, w - 1)
+    y = np.clip(y, 0, h - 1)
+    x0 = np.minimum(np.floor(x).astype(np.int64), w - 2)
+    y0 = np.minimum(np.floor(y).astype(np.int64), h - 2)
+    fx, fy = x - x0, y - y0
+    top = img[y0, x0] * (1 - fx) + img[y0, x0 + 1] * fx
+    bot = img[y0 + 1, x0] * (1 - fx) + img[y0 + 1, x0 + 1] * fx
+    return np.where(inside, top * (1 - fy) + bot * fy, border)
+
+
+def _draw_segment(img: np.ndarray, p: np.ndarray, q: np.ndarray,
+                  value: float, half_width: float = 1.0) -> None:
+    """An anti-aliased segment of width 2 * half_width px from p to q
+    (pixel coordinates) blended into the float image: coverage 1 within
+    half_width - 0.5 of the segment, falling linearly to 0 a pixel out."""
+    h, w = img.shape
+    r = half_width + 0.5
+    x0 = max(int(np.floor(min(p[0], q[0]) - r)), 0)
+    x1 = min(int(np.ceil(max(p[0], q[0]) + r)), w - 1)
+    y0 = max(int(np.floor(min(p[1], q[1]) - r)), 0)
+    y1 = min(int(np.ceil(max(p[1], q[1]) + r)), h - 1)
+    if x1 < x0 or y1 < y0:
+        return
+    xs, ys = np.meshgrid(np.arange(x0, x1 + 1, dtype=np.float64),
+                         np.arange(y0, y1 + 1, dtype=np.float64))
+    d = q - p
+    n2 = float(d @ d)
+    t = np.zeros_like(xs) if n2 < 1e-12 else np.clip(
+        ((xs - p[0]) * d[0] + (ys - p[1]) * d[1]) / n2, 0.0, 1.0)
+    dist = np.hypot(xs - (p[0] + t * d[0]), ys - (p[1] + t * d[1]))
+    a = np.clip(r - dist, 0.0, 1.0)
+    patch = img[y0:y1 + 1, x0:x1 + 1]
+    patch += a * (value - patch)
+
+
+def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
+                    cam=EUROC_CAM, Tbc=None,
+                    noise_gyro: float = CORRIDOR_NOISE_GYRO,
+                    noise_acc: float = CORRIDOR_NOISE_ACC):
+    """An irregular wireframe corridor seen by `cam` (bench.py's live
+    corridor): randomized bars and rails on a wall at z = 4.2 m with a
+    world-fixed two-scale texture warped into each frame by the plane's
+    homography (bilinear), free segments in front of it, 2-px anti-aliased
+    lines and +-8 grey levels of noise. The body moves at `speed` m a frame
+    with sinusoidal excitation on all axes (accelerations in the world,
+    rates in the body), integrated at 200 Hz with the discrete model the
+    preintegration assumes; gravity is +y in the world (image down). The
+    camera is mounted by Tbc (body-from-camera, 4x4; identity when None)
+    and starts at the world origin. IMU rows (ax, ay, az, wx, wy, wz, t)
+    carry white noise of the given densities; the poses are the clean
+    signal's. Everything is numpy, made from `seed`.
+
+    Returns a namespace: frames (uint8 images), times, cam_poses [(Rcw,
+    tcw)], body_poses [(Rwb, twb)], body_vels, imu (M, 7), gravity (3,)."""
+    import types
+
+    from .geometry import so3
+
+    rng = np.random.RandomState(seed)
+    segs, vals = [], []
+    x0, x1 = -3.0, max(5.0, speed * n_frames + 4.0)
+    x = x0
+    while x < x1:
+        tilt = rng.uniform(-0.35, 0.35)
+        segs.append(((x, -1.8, 4.2), (x + tilt, 1.8, 4.2)))
+        vals.append(int(rng.randint(170, 255)))
+        x += rng.uniform(0.35, 0.95)
+    for y in np.linspace(-1.8, 1.8, 10):
+        dy = rng.uniform(-0.15, 0.15)
+        segs.append(((x0, y, 4.2), (x1, y + dy, 4.2)))
+        vals.append(int(rng.randint(170, 255)))
+    for xc in np.arange(x0 + 1, x1, 0.35):
+        p = np.array([xc, 0, 0]) + rng.uniform([-0.4, -1.5, 2.6],
+                                               [0.4, 1.5, 3.9])
+        q = p + rng.uniform([-1.0, -1.0, -0.3], [1.0, 1.0, 0.3])
+        segs.append((tuple(p), tuple(q)))
+        vals.append(int(rng.randint(170, 255)))
+    seg_p = np.asarray([s[0] for s in segs], np.float64)
+    seg_q = np.asarray([s[1] for s in segs], np.float64)
+
+    # world-fixed wall texture on the plane z = 4.2
+    s = 96.0  # texture px per meter
+    wx0, wy0 = x0 - 1.5, -2.4
+    tw, th = int((x1 + 1.5 - wx0) * s), int((2.4 - wy0) * s)
+    t1 = _resize_bilinear(rng.randint(0, 255, (th // 8, tw // 8)), th, tw)
+    t2 = _resize_bilinear(rng.randint(0, 255, (th // 32, tw // 32)), th, tw)
+    tex = np.clip(110.0 + (t1 - 127.0) * 0.18 + (t2 - 127.0) * 0.25, 0, 255)
+    tex = np.floor(tex).astype(np.float32)
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    Btex = np.array([[1.0 / s, 0, wx0], [0, 1.0 / s, wy0], [0, 0, 4.2]])
+
+    Tbc = np.eye(4) if Tbc is None else np.asarray(Tbc, np.float64)
+    Rbc, tbc = Tbc[:3, :3].astype(np.float32), Tbc[:3, 3].astype(np.float32)
+    fps, imu_hz = 20.0, 200.0
+    dt = 1.0 / imu_hz
+    steps = int(round(imu_hz / fps))
+    g = np.float32([0.0, 9.81, 0.0])
+    bx, wx = 0.22, 4.0
+    by, wy = 0.30, 3.4
+    bz, wz = 0.15, 2.6
+
+    def accel_w(tm):
+        return np.float32([-bx * wx * wx * np.sin(wx * tm),
+                           -by * wy * wy * np.sin(wy * tm),
+                           -bz * wz * wz * np.sin(wz * tm)])
+
+    def gyro_b(tm):
+        return np.float32([0.22 * np.sin(2.2 * tm), 0.20 * np.cos(4.0 * tm),
+                           0.22 * np.sin(1.8 * tm)])
+
+    sg = noise_gyro * np.sqrt(imu_hz)
+    sa = noise_acc * np.sqrt(imu_hz)
+    imu_rng = np.random.RandomState(seed + 7)
+    # the body starts where the camera sits at the world origin
+    Rwb = Rbc.T.copy()
+    twb = (-Rbc.T @ tbc).astype(np.float32)
+    vel = np.float32([speed * fps + bx * wx, by * wy, bz * wz])
+    body_poses = [(Rwb.copy(), twb.copy())]
+    body_vels = [vel.copy()]
+    imu_rows = []
+    kk = 0
+    for _ in range(n_frames - 1):
+        for _ in range(steps):
+            tm = kk * dt
+            a_w = accel_w(tm)
+            w_b = gyro_b(tm)
+            a_meas = (Rwb.T @ (a_w - g) + imu_rng.randn(3) * sa).astype(
+                np.float32)
+            w_meas = (w_b + imu_rng.randn(3) * sg).astype(np.float32)
+            imu_rows.append(np.concatenate([a_meas, w_meas, [tm + dt]]))
+            twb = twb + vel * dt + 0.5 * a_w * dt * dt
+            vel = vel + a_w * dt
+            Rwb = Rwb @ so3.exp(np.float32(w_b * dt)).astype(np.float32)
+            kk += 1
+        body_poses.append((Rwb.copy(), twb.copy()))
+        body_vels.append(vel.copy())
+
+    frames, cam_poses = [], []
+    img_rng = np.random.RandomState(seed + 100)
+    vs, us = np.mgrid[0:cam.height, 0:cam.width].astype(np.float64)
+    for Rwb_k, twb_k in body_poses:
+        Rwc = Rwb_k.astype(np.float64) @ Rbc
+        twc = Rwb_k.astype(np.float64) @ tbc + twb_k
+        Rcw = Rwc.T
+        tcw = -Rcw @ twc
+        M = Rcw @ Btex
+        M[:, 2] += tcw
+        Hinv = np.linalg.inv(K @ M)  # image -> texture px
+        den = Hinv[2, 0] * us + Hinv[2, 1] * vs + Hinv[2, 2]
+        img = _sample_bilinear(
+            tex, (Hinv[0, 0] * us + Hinv[0, 1] * vs + Hinv[0, 2]) / den,
+            (Hinv[1, 0] * us + Hinv[1, 1] * vs + Hinv[1, 2]) / den,
+            border=110.0)
+        Pc = seg_p @ Rcw.T + tcw
+        Qc = seg_q @ Rcw.T + tcw
+        for pc, qc, v in zip(Pc, Qc, vals):
+            if pc[2] < 0.5 or qc[2] < 0.5:
+                continue
+            _draw_segment(img, K[:2] @ (pc / pc[2]), K[:2] @ (qc / qc[2]),
+                          float(v))
+        noise = img_rng.randint(-8, 8, img.shape)
+        frames.append(np.clip(np.rint(img) + noise, 0, 255).astype(np.uint8))
+        cam_poses.append((Rcw.astype(np.float32), tcw.astype(np.float32)))
+    return types.SimpleNamespace(
+        frames=frames, times=[k / fps for k in range(n_frames)],
+        cam_poses=cam_poses, body_poses=body_poses, body_vels=body_vels,
+        imu=np.stack(imu_rows).astype(np.float64), gravity=g, fps=fps)
+
+
 def sqrtm_psd_inv(M: np.ndarray) -> np.ndarray:
     """sqrt of the PSD-projected inverse (the tracker's whitening factor)."""
     M = 0.5 * (M + M.T)

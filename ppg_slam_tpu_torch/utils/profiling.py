@@ -12,7 +12,10 @@ rebuild makes observability first-class:
     (tracking: preintegrate/extract/pose_opt/local_map; local mapping:
     fuse/lba; loop closing: detect/correct/gba);
   * ``summary()`` / ``report()`` for the CLI stats dict and bench stderr
-    breakdowns.
+    breakdowns;
+  * ``count_device`` — the estimator's tensor functions count each call
+    under the device it ran on ("device.solve_ba.cuda"), so a run can show
+    that none fell back to the CPU.
 
 Enable/disable globally with ``profiler.enabled``; timings of device work
 measure the host-blocking dispatch + fetch, the latency the pipeline sees.
@@ -69,6 +72,11 @@ class Profiler:
     def count(self, name: str, n: int = 1) -> None:
         if self.enabled:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    def count_device(self, name: str, tensor) -> None:
+        """Count one call of `name` under "device.<name>.<device type>",
+        the device that of `tensor`, the call's data."""
+        self.count(f"device.{name}.{tensor.device.type}")
 
     # ------------------------------------------------------------------
     def summary(self) -> dict:
