@@ -19,9 +19,15 @@ on a 20-keyframe synthetic window, each held against the same call on CPU
 tensors), then the port's System end to end
 (phase 9: a rendered 752x480 corridor with its IMU, tracked through
 monocular and IMU initialization in the serving configuration with the real
-weights and the EuRoC vocabulary, held to the ground truth; the first frames
-again in f32 against a CPU run), and prints one line per phase. Every
-phase's failure is fatal.
+weights and the EuRoC vocabulary and active loop closing, held to the
+ground truth and to no false loop; the first frames again in f32 against a
+CPU run), then loop closing (phase 10: the 168-frame synthetic loop closed
+end to end on CUDA and held to tests/test_loop_closing.py's checks; Sim3
+exp/log, the Sim3 RANSAC, optimize_sim3 and both essential graphs, at the
+loop map's size and at 300 keyframes, on CUDA against CPU tensors, timed
+and profiled; the background GBA against the synchronous one; a map
+checkpoint round trip), and prints one line per phase. Every phase's
+failure is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
 lines, one JSON line with the kernel table, and as the last line
@@ -96,6 +102,21 @@ SYS_BUSY_FRAMES = 10
 SYS_DEVICE_CALLS = ("integrate", "two_view_reconstruct", "pose_optimization",
                     "pose_inertial_optimization", "inertial_optimization",
                     "solve_ba", "conformal_scan")
+
+# phase 10: loop closing on the card
+LOOP_FRAMES = 168         # testing.make_loop_sequence, as tests/ run it
+LOOP_PINNED_ATE_M = 0.012  # tests/test_loop_closing.py's post-loop pin
+LOOP_DEVICE_CALLS = ("sim3_score", "optimize_sim3",
+                     "optimize_essential_graph_4dof", "solve_ba",
+                     "pose_inertial_optimization")
+# CUDA against the CPU; readings of two runs on the H100 (700 W) in
+# brackets, the limits about 5x the largest
+LC_SIM3_ABS = 1e-6        # Sim3 exp/log: CUDA's error beyond 2x the CPU's
+LC_OPT_ABS = 2e-5         # optimize_sim3's R, t, s [1.8e-7, 3.7e-6]
+LC_RANSAC_MATCHES = 200
+LC_GRAPH_KFS = 300        # a EuRoC MH-sized essential graph
+LC_GRAPH_R = 2e-5         # essential graphs: rotation entries [3.8e-6]
+LC_GRAPH_M = 1e-3         # essential graphs: keyframe centres [2.3e-4 m]
 
 
 class PhaseError(RuntimeError):
@@ -212,6 +233,22 @@ def validate_bound(mask, heat, kp, ref):
     n_bytes = mask.numel() + kp.shape[0] * 8 + n * 21 + taps + n * 5 + 1
     return bound_ms(n_bytes, 11 * rate_samples + 26 * score_samples
                     + 20 * mids)
+
+
+def loop_error(Rcw, tcw, s, g):
+    """|log(Sji^-1 o S0 S_last^-1)| at the loop edge (last -> 0) of a
+    testing.pose_graph_ring `g`, for Scw vertices (Rcw, tcw, s)."""
+    import numpy as np
+    import torch
+
+    from ppg_slam_tpu_torch.geometry import Sim3
+
+    R, t, sc = (torch.from_numpy(np.asarray(a, np.float32))
+                for a in (Rcw, tcw, s))
+    est = Sim3(R[0], t[0], sc[0]) @ Sim3(R[-1], t[-1], sc[-1]).inverse()
+    meas = Sim3(*(torch.as_tensor(np.asarray(g[k][-1]))
+                  for k in ("SR", "St", "Ss")))
+    return float(torch.linalg.norm((meas.inverse() @ est).log()))
 
 
 def host_ms(fn, setup=None, calls=EST_WARM_CALLS):
@@ -1291,12 +1328,15 @@ class Smoke:
 
         with tempfile.TemporaryDirectory() as tmp_dir:
             settings = self.system_settings(tmp_dir)
-            system = System(voc, settings, active_loop_closing=False,
-                            desc_transfer="device", compute_dtype="bf16")
+            system = System(voc, settings, desc_transfer="device",
+                            compute_dtype="bf16")
             check(system.device.type == "cuda"
                   and system.tracking.device.type == "cuda"
-                  and system.local_mapping.device.type == "cuda",
-                  "System did not default to the card")
+                  and system.local_mapping.device.type == "cuda"
+                  and system.loop_closing.device.type == "cuda"
+                  and system.loop_closing.active,
+                  "System did not default to the card with active loop "
+                  "closing")
             profiler.reset()
             busy = {}
             first_busy = SYS_FRAMES - SYS_BUSY_FRAMES
@@ -1324,6 +1364,8 @@ class Smoke:
             dm = tr._dev_matcher
             devices = {k: v for k, v in profiler.counters.items()
                        if k.startswith("device.")}
+            n_loops = system.loop_closing.n_loops_closed
+            detect = profiler.stats.get("loop_closing.detect")
 
         states = [r["state"] for r in rows]
         check(OK in states, "tracking never initialized")
@@ -1332,6 +1374,10 @@ class Smoke:
         check(states[-1] == OK, f"last state {states[-1]}, not OK; state "
               f"events {tr.state_events}")
         check(k_imu is not None, "the IMU never initialized")
+        check(n_loops == 0 and not profiler.counters.get("loops_closed"),
+              f"{n_loops} loops closed on the straight corridor")
+        check(detect is not None and detect.count > 0,
+              "loop closing saw no keyframe")
         check(dm is not None and dm.device.type == "cuda"
               and dm.n_dispatches > 0,
               "tracking's DeviceMatcher did not run on the card")
@@ -1377,6 +1423,9 @@ class Smoke:
         events = [(e["kind"], round(e["t"], 2), round(e["scale"], 4),
                    e["applied"]) for e in tr.init_events]
         self.sys_result = dict(split=split, busy_ms=busy_ms, wall_ms=wall_ms)
+        say(f"  loop closing (active): {detect.count} keyframes, detect "
+            f"{detect.total / detect.count * 1e3:.2f} ms per keyframe (max "
+            f"{detect.max * 1e3:.2f}), 0 loops closed [{self.card}]")
         say(f"  System serving: init frame {k_init}, IMU init frame {k_imu}"
             f", {len(kfs)} KFs, {system.map.n_map_points()} map points; "
             f"KF-ATE {ate.rmse:.4f} m (scale {ate.scale:.4f}); events "
@@ -1399,8 +1448,7 @@ class Smoke:
         for dev in (None, "cpu"):
             t0 = time.time()
             with tempfile.TemporaryDirectory() as d:
-                s32 = System(voc, self.system_settings(d),
-                             active_loop_closing=False, device=dev)
+                s32 = System(voc, self.system_settings(d), device=dev)
                 r32 = self.drive_system(s32, corridor, SYS_F32_FRAMES)
             st = [r["state"] for r in r32]
             check(OK in st, f"f32 rerun on {dev or 'cuda'}: no "
@@ -1415,12 +1463,382 @@ class Smoke:
         say(f"phase 9 ok: System (serving) tracked {SYS_FRAMES} rendered "
             f"752x480 frames: init frame {k_init}, IMU init frame {k_imu}, "
             f"last state OK, KF-ATE {ate.rmse:.4f} m < "
-            f"{SYS_ATE_M} m; fused kernels once a frame; "
+            f"{SYS_ATE_M} m; active loop closing, 0 loops; fused kernels "
+            f"once a frame; "
             f"estimators on the card; f32 rerun of {SYS_F32_FRAMES} frames: "
             f"init frame {k_g} (CPU {k_c}), map points {mp_g} (CPU {mp_c})"
             f", KFs {kf_g} (CPU {kf_c}), rerun s {t_rerun}; in "
             f"{time.time() - t_phase:.1f} s "
             f"[{self.card}]")
+
+    # ------------------------------------------------------------------
+    def phase10_loop_closing(self):
+        """Loop closing on the card. (b) the synthetic loop end to end:
+        testing.make_loop_sequence through Tracking, LocalMapping and an
+        active LoopClosing on CUDA with the EuRoC vocabulary, held to
+        tests/test_loop_closing.py's checks; (a) Sim3 exp/log, the Sim3
+        RANSAC, optimize_sim3 and both essential graphs (at the loop map's
+        size and at 300 keyframes) on CUDA against the same call on CPU
+        tensors, timed and profiled; (c) the background GBA against the
+        synchronous one, and a stopped run; (d) the loop map through a
+        checkpoint."""
+        t_phase = time.time()
+        loop = self.loop_run()
+        self.loop_functions(loop["n_kf"])
+        self.background_gba()
+        self.checkpoint(loop)
+        say(f"phase 10 ok: loop closing on the card: {loop['summary']}; in "
+            f"{time.time() - t_phase:.1f} s [{self.card}]")
+
+    def loop_run(self):
+        import numpy as np
+
+        import ppg_slam_tpu_torch.worldmap as pwm
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.bow import Vocabulary
+        from ppg_slam_tpu_torch.pipeline import (OK, LocalMapping,
+                                                 LoopClosing, Tracking)
+        from ppg_slam_tpu_torch.utils import profiler
+        from ppg_slam_tpu_torch.utils.evaluation import ate_rmse
+
+        t0 = time.time()
+        pwm.reset_ids()
+        seq = testing.make_loop_sequence(n_frames=LOOP_FRAMES)
+        voc = Vocabulary.load(os.path.join(ROOT, "assets",
+                                           "voc_euroc_9x3.npz"))
+        saved = pwm.Map.imu_ini_time
+        pwm.Map.imu_ini_time = SYS_IMU_INI_TIME
+        wmap = pwm.Map(pwm.Rig(seq.scene.cam, freq=200.0), vocabulary=voc)
+        tracking = Tracking(wmap, testing.SyntheticExtractor(seq))
+        lc = LoopClosing(wmap, active=True)
+        lm = LocalMapping(wmap, tracking=tracking, loop_closer=lc)
+        tracking.local_mapper = lm
+        lc.local_mapper = lm
+        check(all(m.device == self.dev for m in (tracking, lm, lc)),
+              "the loop run's modules did not default to the card")
+
+        def kf_ate():
+            kfs = [kf for kf in wmap.keyframes if not kf.is_bad()]
+            return ate_rmse(np.stack([kf.camera_center() for kf in kfs]),
+                            np.stack([seq.frame_poses[kf.frame_id][1]
+                                      for kf in kfs]), with_scale=True)
+
+        pre = {}
+        correct = lc.correct_loop
+
+        def pre_loop_then_correct():
+            pre.setdefault("ate", kf_ate())
+            pre.setdefault("kf_id", lc.current_kf.mnId)
+            correct()
+
+        lc.correct_loop = pre_loop_then_correct
+        profiler.reset()
+        last_t = -1.0
+        try:
+            for i in range(seq.n_frames):
+                t = seq.frame_times[i]
+                tracking.grab_imu(seq.imu_between(last_t, t))
+                last_t = t
+                tracking.grab_image(np.zeros((2, 2), np.uint8), t)
+        finally:
+            pwm.Map.imu_ini_time = saved
+        wall = time.time() - t0
+        devices = {k: v for k, v in profiler.counters.items()
+                   if k.startswith("device.")}
+        stats = {n: s for n, s in profiler.stats.items()
+                 if n.startswith("loop_closing.")}
+
+        check(tracking.state == OK, f"loop run: last state "
+                                    f"{tracking.state}, not OK")
+        check(wmap.n_keyframes() >= 30, f"loop run: {wmap.n_keyframes()} "
+                                        f"keyframes")
+        check(wmap.imu_initialized and wmap.inertial_ba1,
+              "loop run: no IMU initialization / VIBA1")
+        check(lc.n_loops_closed >= 1 and "kf_id" in pre,
+              "loop run: no loop was closed")
+        check(pre["kf_id"] > 0.6 * wmap.max_kf_id,
+              f"loop run: the loop fired on KF {pre['kf_id']} of "
+              f"{wmap.max_kf_id}")
+        errs = []
+        for kf in wmap.keyframes:
+            if not kf.is_bad():
+                Rd = kf.Rcw @ seq.frame_poses[kf.frame_id][0]
+                errs.append(np.degrees(np.arccos(np.clip(Rd[1, 1], -1, 1))))
+        rp = float(np.median(errs))
+        check(rp < 2.0, f"loop run: median roll/pitch error {rp} deg")
+        post = kf_ate()
+        check(post < pre["ate"] and post < 2 * LOOP_PINNED_ATE_M,
+              f"loop run: KF-ATE {pre['ate']} m before the loop, {post} m "
+              f"after (limit {2 * LOOP_PINNED_ATE_M})")
+        check(lc.gba_error is None, f"loop GBA failed: {lc.gba_error}")
+        card = f".{self.dev.type}"
+        off_card = {k: v for k, v in devices.items() if not k.endswith(card)}
+        check(not off_card, f"loop run: calls off the card: {off_card}")
+        never = [n for n in LOOP_DEVICE_CALLS
+                 if f"device.{n}{card}" not in devices]
+        check(not never, f"loop run: never ran on the card: {never}")
+        det = stats["loop_closing.detect"]
+        ms = {n.split(".", 1)[1]: round(s.total / s.count * 1e3, 1)
+              for n, s in stats.items()}
+        say(f"  (b) loop run: {LOOP_FRAMES} frames in {wall:.1f} s, "
+            f"{wmap.n_keyframes()} KFs (max id {wmap.max_kf_id}), "
+            f"{lc.n_loops_closed} loop(s) closed on KF {pre['kf_id']}; "
+            f"KF-ATE {pre['ate']:.4f} -> {post:.4f} m; median roll/pitch "
+            f"error {rp:.3f} deg; detect {det.count} KFs, "
+            f"{det.total / det.count * 1e3:.1f} ms per KF (max "
+            f"{det.max * 1e3:.1f}); ms per call {ms} (correct includes the "
+            f"essential graph and the GBA); calls by device {devices} "
+            f"[{self.card}]")
+        return dict(map=wmap, voc=voc, n_kf=wmap.n_keyframes(),
+                    summary=(f"loop closed on KF {pre['kf_id']}, KF-ATE "
+                             f"{pre['ate']:.4f} -> {post:.4f} m"))
+
+    def loop_functions(self, n_loop):
+        """(a) each loop-closing function on CUDA against the same call on
+        CPU tensors, with its host ms, kernels and host syncs per call."""
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.estimator import pose_graph as pg
+        from ppg_slam_tpu_torch.geometry import Sim3
+        from ppg_slam_tpu_torch.matching import Sim3Solver
+
+        def row(name, diffs, fn):
+            k, c, busy, syncs = device_profile(fn)
+            say(f"  (a) {name}: " + ", ".join(
+                f"{n} {v:.3g}" if isinstance(v, float) else f"{n} {v}"
+                for n, v in diffs.items())
+                + f"; ms {host_ms(lambda _: fn()):.2f}; {k} kernels + {c} "
+                f"copies per call, device busy {busy:.3f} ms, {syncs} host "
+                f"syncs flagged [{self.card}]")
+
+        # ---- Sim3 exp / log over the four branches ---------------------
+        rng = np.random.RandomState(SEED)
+        xi = (rng.randn(4096, 7) * 0.4).astype(np.float32)
+        q = len(xi) // 4
+        small = xi[:2 * q, 3:6]
+        xi[:2 * q, 3:6] = small * (rng.uniform(1e-7, 8e-6, (2 * q, 1))
+                                   / np.linalg.norm(small, axis=1,
+                                                    keepdims=True))
+        xi[:q, 6] = rng.uniform(-8e-6, 8e-6, q)
+        xi[2 * q:3 * q, 6] = rng.uniform(-8e-6, 8e-6, q)
+        x = {d: torch.from_numpy(xi).to(d) for d in (self.dev, "cpu")}
+        # the reference's formulas cancel in f32 where |sigma| is small but
+        # above the branch's 1e-5 (measured on the CPU: 9.3e-5 off the f64
+        # value at sigma = 1.8e-4), so each device is held to the f64 value
+        # and CUDA's error to the CPU's f32 error
+        x64 = x["cpu"].double()
+        ref = (Sim3.exp(x64), Sim3.exp(x64).log())
+        err = {}
+        for d in x:
+            e, lg = Sim3.exp(x[d]), Sim3.exp(x[d]).log()
+            err[d] = (max(float((a.cpu().double() - b).abs().max())
+                          for a, b in zip(e, ref[0])),
+                      float((lg.cpu().double() - ref[1]).abs().max()))
+        d_exp, d_log = err[self.dev]
+        check(d_exp <= 2 * err["cpu"][0] + LC_SIM3_ABS
+              and d_log <= 2 * err["cpu"][1] + LC_SIM3_ABS,
+              f"Sim3 exp/log off the f64 values: cuda {err[self.dev]}, "
+              f"cpu {err['cpu']}")
+        row("Sim3.exp+log", dict(n=len(xi), exp_err_vs_f64=d_exp,
+                                 log_err_vs_f64=d_log,
+                                 exp_err_vs_f64_cpu=err["cpu"][0],
+                                 log_err_vs_f64_cpu=err["cpu"][1]),
+            lambda: Sim3.exp(x[self.dev]).log())
+
+        # ---- the Sim3 RANSAC ----------------------------------------------
+        for fix_scale in (False, True):
+            X1, X2, uv1, uv2, _, _ = testing.sim3_matches(
+                n=LC_RANSAC_MATCHES, s=1.0 if fix_scale else 1.2)
+
+            def solve(device, fix_scale=fix_scale, data=(X1, X2, uv1, uv2)):
+                solver = Sim3Solver(*data, testing.CAM, fix_scale=fix_scale,
+                                    min_inliers=15, device=device)
+                return solver, solver.iterate(300)
+
+            (sg, rg), (sc, rc) = solve(None), solve("cpu")
+            check(sg.device == self.dev, "Sim3Solver not on the card")
+            same = (all(np.array_equal(a, b) for a, b in zip(sg._hyp,
+                                                               sc._hyp))
+                    and np.array_equal(rg[1], rc[1]) and rg[2:] == rc[2:]
+                    and sg.iterations_done == sc.iterations_done)
+            check(same and rg[0] is not None,
+                  f"Sim3Solver fix_scale={fix_scale}: cuda and cpu differ "
+                  f"or found no Sim3 ({rg[2]} vs {rc[2]} inliers)")
+            row(f"Sim3Solver fix_scale={fix_scale}", dict(
+                matches=len(X1), hypotheses=sg.max_iterations,
+                inliers=rg[2], masks_equal=True), lambda: solve(None))
+
+        # ---- optimize_sim3 -------------------------------------------------
+        S0, X1, X2, uv1, uv2, (R, t, s), bad = testing.sim3_pair()
+        args = {d: [torch.from_numpy(np.asarray(a, np.float32)).to(d)
+                    for a in (*S0, X1, X2, uv1, uv2)]
+                for d in (self.dev, "cpu")}
+        for fix_scale in (False, True):
+            og, oc = (pg.optimize_sim3(*args[d], testing.CAM, testing.CAM,
+                                       fix_scale=fix_scale)
+                      for d in (self.dev, "cpu"))
+            d_s = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(og[:3], oc[:3]))
+            check(d_s <= LC_OPT_ABS and torch.equal(og[3].cpu(), oc[3])
+                  and (fix_scale or abs(float(og[2]) - s) < 0.01),
+                  f"optimize_sim3 fix_scale={fix_scale} cuda vs cpu: "
+                  f"{d_s}, inliers {int(og[4])} vs {int(oc[4])}")
+            row(f"optimize_sim3 fix_scale={fix_scale}", dict(
+                points=len(X1), inliers=int(og[4]), max_diff=d_s),
+                lambda fs=fix_scale: pg.optimize_sim3(
+                    *args[self.dev], testing.CAM, testing.CAM,
+                    fix_scale=fs)[4].item())
+
+        # ---- both essential graphs, at the loop map's size and at 300 -----
+        for n in (n_loop, LC_GRAPH_KFS):
+            for four in (True, False):
+                g = testing.pose_graph_ring(n, seed=SEED, four_dof=four)
+
+                def run(device, g=g, four=four):
+                    a = {k: torch.from_numpy(v).to(device)
+                         for k, v in g.items()}
+                    if four:
+                        R_, t_ = pg.optimize_essential_graph_4dof(
+                            a["Rwb"], a["twb"], pg.Graph4DoF(
+                                a["i"], a["j"], a["dRij"], a["dtij"]),
+                            a["fixed"])
+                        Rcw = R_.transpose(1, 2)
+                        return (Rcw, -(Rcw @ t_[..., None])[..., 0],
+                                torch.ones_like(t_[:, 0]))
+                    return pg.optimize_essential_graph(
+                        a["Rcw"], a["tcw"], a["s"], pg.Sim3Graph(
+                            a["i"], a["j"], a["SR"], a["St"], a["Ss"]),
+                        a["fixed"])
+
+                og, oc = run(self.dev), run("cpu")
+                d_R = float((og[0].cpu() - oc[0]).abs().max())
+                cg, cc = (-(o[0].transpose(1, 2) @ (o[1] / o[2][:, None])
+                            [..., None])[..., 0].cpu() for o in (og, oc))
+                d_c = float((cg - cc).abs().max())
+                e0 = loop_error(g["Rcw"], g["tcw"], g["s"], g)
+                eg = loop_error(*(o.cpu().numpy() for o in og), g)
+                ec = loop_error(*(o.numpy() for o in oc), g)
+                check(d_R <= LC_GRAPH_R and d_c <= LC_GRAPH_M
+                      and eg < 0.5 * e0 and ec < 0.5 * e0,
+                      f"{'4-DoF' if four else 'Sim3'} graph at {n} KFs: "
+                      f"cuda vs cpu R {d_R}, centres {d_c} m; loop error "
+                      f"{e0} -> {eg} (cuda) / {ec} (cpu)")
+                row(f"{'optimize_essential_graph_4dof' if four else 'optimize_essential_graph'}"
+                    f" {n} KFs", dict(edges=len(g["i"]), loop_err=e0,
+                                      loop_err_after=eg,
+                                      loop_err_after_cpu=ec,
+                                      max_R_diff=d_R, max_centre_diff_m=d_c),
+                    lambda run=run: run(self.dev)[0].sum().item())
+
+    def background_gba(self):
+        """(c) the background GBA on a small map: start_gba_thread +
+        poll_gba(wait=True) applies and agrees with the synchronous
+        run_global_ba; a stopped run changes no pose."""
+        import numpy as np
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.pipeline import LoopClosing
+
+        base = testing.small_gba_map(seed=21)
+        kf2 = base[1][2]
+        truth = kf2.tcw.copy()
+        kf2.set_pose(kf2.Rcw, kf2.tcw + np.float32([0.05, 0.0, 0.0]))
+        (m_t, k_t, _), (m_s, k_s, _), (m_x, k_x, _) = (
+            copy.deepcopy(base) for _ in range(3))
+        loop_kf = k_t[-1].mnId
+
+        lc_t = LoopClosing(m_t, active=False)
+        lc_t.threaded_gba = True
+        t0 = time.perf_counter()
+        lc_t.start_gba_thread(loop_kf)
+        applied = lc_t.poll_gba(wait=True)
+        ms_thread = (time.perf_counter() - t0) * 1e3
+        check(applied and not lc_t.gba_running and lc_t.gba_error is None,
+              f"background GBA: applied {applied}, error {lc_t.gba_error}")
+        lc_s = LoopClosing(m_s, active=False)
+        t0 = time.perf_counter()
+        lc_s.run_global_ba(loop_kf)
+        ms_sync = (time.perf_counter() - t0) * 1e3
+
+        def centres(kfs):
+            return np.stack([k.camera_center() for k in kfs])
+
+        def points(m):
+            return np.stack([p.pos for p in sorted(m.all_map_points(),
+                                                   key=lambda p: p.mnId)])
+
+        # only KF 0 is fixed, so the visual GBA keeps a free scale, along
+        # which CUDA's unordered sums move it between runs (scales
+        # 0.9989-1.0016, 9.4 mm median point): divided out about KF 0, as
+        # phase 8 does for its GBA, the two agree to 3.6e-7 m (centres) and
+        # 2.3e-6 m (median point) over six runs, held at phase 8's limits
+        ct, cs = centres(k_t), centres(k_s)
+        o = cs[0]
+        scale = float(np.median(np.linalg.norm(cs[1:] - o, axis=1)
+                                / np.linalg.norm(ct[1:] - o, axis=1)))
+        d_c = float(np.abs(scale * (ct - o) - (cs - o)).max())
+        d_p = float(np.median(np.linalg.norm(
+            scale * (points(m_t) - o) - (points(m_s) - o), axis=1)))
+        fixed = float(np.linalg.norm(k_t[2].tcw - truth))
+        check(d_c <= EST_CENTRE_M and d_p <= EST_POINT_M and fixed < 0.04,
+              f"background GBA vs synchronous: centres {d_c} m, points "
+              f"{d_p} m (scale {scale}); the perturbed KF {fixed} m off")
+
+        before = [k.tcw.copy() for k in k_x]
+        lc_x = LoopClosing(m_x, active=False)
+        lc_x.threaded_gba = True
+        lc_x.start_gba_thread(loop_kf)
+        lc_x.stop_gba = True
+        lc_x._gba_thread.join()
+        check(not lc_x.poll_gba(wait=True)
+              and all(np.array_equal(k.tcw, b) for k, b in zip(k_x, before)),
+              "a stopped background GBA changed the map")
+        say(f"  (c) background GBA ({len(k_t)} KFs, "
+            f"{m_t.n_map_points()} points): applied, against the "
+            f"synchronous run centres {d_c:.3g} m, median point {d_p:.3g} m "
+            f"(free scale {scale:.6f} divided out); "
+            f"perturbed KF {fixed:.4f} m from the truth; threaded "
+            f"{ms_thread:.1f} ms, synchronous {ms_sync:.1f} ms; a stopped "
+            f"run changed no pose [{self.card}]")
+
+    def checkpoint(self, loop):
+        """(d) the loop run's map through save_map / load_map: the same
+        keyframe and map-point ids, poses and points bit-equal."""
+        import tempfile
+
+        import numpy as np
+
+        from ppg_slam_tpu_torch.worldmap import load_map, save_map
+
+        src = loop["map"]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "loop.ppgmap")
+            t0 = time.perf_counter()
+            save_map(src, path)
+            t1 = time.perf_counter()
+            got = load_map(path, vocabulary=loop["voc"])
+            t2 = time.perf_counter()
+            size = os.path.getsize(path)
+        kfs = [sorted(m.keyframes, key=lambda k: k.mnId) for m in (got, src)]
+        mps = [sorted(m.map_points, key=lambda p: p.mnId)
+               for m in (got, src)]
+        check([k.mnId for k in kfs[0]] == [k.mnId for k in kfs[1]]
+              and [p.mnId for p in mps[0]] == [p.mnId for p in mps[1]],
+              "checkpoint: keyframe or map-point ids changed")
+        check(all(np.array_equal(a.Rcw, b.Rcw) and np.array_equal(a.tcw,
+                                                                  b.tcw)
+                  for a, b in zip(*kfs))
+              and all(np.array_equal(a.pos, b.pos) for a, b in zip(*mps)),
+              "checkpoint: poses or points changed")
+        check(all(k.preintegrated is None
+                  or k.preintegrated.device == self.dev for k in kfs[0]),
+              "checkpoint: the loaded preintegration is not on the card")
+        say(f"  (d) checkpoint: {len(kfs[0])} KFs, {len(mps[0])} map "
+            f"points, {size / 1e6:.2f} MB; save {(t1 - t0) * 1e3:.1f} ms, "
+            f"load (BoW re-index included) {(t2 - t1) * 1e3:.1f} ms; ids, "
+            f"poses and points bit-equal [{self.card}]")
 
     # ------------------------------------------------------------------
     def kernel_table(self):
@@ -1483,7 +1901,8 @@ def main() -> int:
     phases = [smoke.phase1_card, smoke.phase2_build,
               smoke.phase3_kernel_parity, smoke.phase4_main_f32,
               smoke.phase5_serving, smoke.phase6_batch, smoke.phase7_tumvi,
-              smoke.phase8_estimator, smoke.phase9_system]
+              smoke.phase8_estimator, smoke.phase9_system,
+              smoke.phase10_loop_closing]
     for k, phase in enumerate(phases, 1):
         try:
             phase()

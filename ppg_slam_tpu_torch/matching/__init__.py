@@ -1,10 +1,11 @@
 """Data association: the host matcher (a copy of the reference's), the
-device gated-match service and relocalization PnP. The Sim3 solver waits
-for loop closing (ROADMAP.md)."""
+device gated-match service, relocalization PnP and loop closing's Sim3
+RANSAC."""
 
 from .device_match import DeviceMatcher, GatedRows
 from .matcher import TH_HIGH, TH_LOW, Matcher, desc_dist_matrix
 from .pnp import PnPSolver
+from .sim3_solver import Sim3Solver, horn_sim3
 
 __all__ = [
     "DeviceMatcher",
@@ -14,4 +15,6 @@ __all__ = [
     "TH_LOW",
     "desc_dist_matrix",
     "PnPSolver",
+    "Sim3Solver",
+    "horn_sim3",
 ]

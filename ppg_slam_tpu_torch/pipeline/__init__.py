@@ -1,5 +1,5 @@
-"""The pipeline: System, Tracking, LocalMapping and the inactive
-LoopClosing (the port of ppg_slam_tpu/pipeline)."""
+"""The pipeline: System, Tracking, LocalMapping and LoopClosing (the port
+of ppg_slam_tpu/pipeline)."""
 
 from .local_mapping import LocalMapping
 from .loop_closing import LoopClosing

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import re
+import sys
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -149,13 +150,17 @@ class System:
                  async_mapping: bool = False,
                  desc_transfer: str = "f32", compute_dtype: str = "f32",
                  load_map_path: Optional[str] = None, device=None):
-        """The reference signature, plus `device`. async_mapping: local
-        mapping on its own consumer thread (the reference's thread
-        deployment). desc_transfer="device" + compute_dtype="bf16" is the
-        serving configuration (descriptors stay on the device for gated
-        matching). Not ported yet, and refused: active_loop_closing=True
-        (item 11.1), threaded_gba=True and async_frontend=True (11.3),
-        use_viewer=True (11.6), load_map_path (11.5)."""
+        """The reference signature, plus `device`. active_loop_closing:
+        place recognition, loop correction and the global BA after a loop
+        (pipeline/loop_closing.py). threaded_gba: that global BA on a
+        background thread with kill/propagate (LoopClosing.cpp:1050).
+        async_mapping: local mapping on its own consumer thread (the
+        reference's thread deployment). desc_transfer="device" +
+        compute_dtype="bf16" is the serving configuration (descriptors stay
+        on the device for gated matching). load_map_path: resume from a map
+        saved by save_map(); tracking starts LOST and relocalizes into it.
+        Not ported yet, and refused: async_frontend=True (ROADMAP.md item
+        11.3), use_viewer=True (11.6)."""
         from ..bow import Vocabulary
         from ..frontend.extractor import PPGExtractor
         from ..worldmap import Map, Rig
@@ -164,19 +169,11 @@ class System:
         from .loop_closing import LoopClosing
         from .tracking import Tracking
 
-        if active_loop_closing:
-            raise _not_ported("active_loop_closing=True", "11.1",
-                              "loop closing")
-        if threaded_gba:
-            raise _not_ported("threaded_gba=True", "11.3",
-                              "the background global BA")
         if async_frontend:
             raise _not_ported("async_frontend=True", "11.3",
                               "the frame prefetcher")
         if use_viewer:
             raise _not_ported("use_viewer=True", "11.6", "the viewer")
-        if load_map_path:
-            raise _not_ported("load_map_path", "11.5", "map serialization")
         self.device = resolve_device(device)
         s = load_settings(settings_path)
         cam = camera_from_settings(s)
@@ -188,20 +185,39 @@ class System:
         voc = (Vocabulary.load(vocabulary_path)
                if vocabulary_path and os.path.exists(vocabulary_path)
                else None)
-        self.map = Map(rig, vocabulary=voc)
+        if load_map_path:
+            from ..worldmap.serialize import load_map
+
+            self.map = load_map(load_map_path, vocabulary=voc, rig=rig,
+                                device=self.device)
+            if voc is None:
+                print("WARNING: resuming from a map without a vocabulary — "
+                      "relocalization needs BoW place recognition, so "
+                      "tracking cannot re-anchor into the loaded map",
+                      file=sys.stderr)
+        else:
+            self.map = Map(rig, vocabulary=voc)
         self.extractor = PPGExtractor(cam, weights_path,
                                       desc_transfer=desc_transfer,
                                       compute_dtype=compute_dtype,
                                       device=self.device)
-        self.loop_closing = LoopClosing(self.map, active=False)
+        self.loop_closing = LoopClosing(self.map,
+                                        active=active_loop_closing,
+                                        device=self.device)
+        self.loop_closing.threaded_gba = threaded_gba
+        # the abort poll (chunked BA) is only useful when a background GBA
+        # thread can request interruption
         self.local_mapping = LocalMapping(self.map,
                                           loop_closer=self.loop_closing,
+                                          threaded=threaded_gba,
                                           device=self.device)
         if async_mapping:
             self.local_mapping.start()
         self.tracking = Tracking(self.map, self.extractor,
                                  local_mapper=self.local_mapping,
                                  device=self.device)
+        if load_map_path:
+            self.tracking.resume_from_map()
         self.local_mapping.tracking = self.tracking
         self.loop_closing.local_mapper = self.local_mapping
 
@@ -214,14 +230,19 @@ class System:
     def track_monocular(self, image: np.ndarray, timestamp: float,
                         imu: Optional[np.ndarray] = None):
         """System::TrackMonocular (System.cpp:122-143). imu rows:
-        (ax, ay, az, wx, wy, wz, t)."""
+        (ax, ay, az, wx, wy, wz, t). A finished background GBA is applied
+        first (a safe point)."""
+        self.poll_background()
         if imu is not None and len(imu):
             self.tracking.grab_imu(imu)
         return self.tracking.grab_image(image, timestamp)
 
     def poll_background(self) -> None:
-        """Apply finished background-GBA results at a safe point. A no-op
-        here: there is no background GBA without loop closing."""
+        """Apply finished background-GBA results at a safe point (the
+        per-frame analog of the reference's propagation after the GBA
+        thread finishes, LoopClosing.cpp:1139-1289)."""
+        if self.loop_closing.threaded_gba:
+            self.loop_closing.poll_gba()
 
     @property
     def state(self) -> int:
@@ -273,12 +294,23 @@ class System:
                         f"{twb[2]:.9f} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} "
                         f"{q[3]:.9f}\n")
 
+    def save_map(self, path: str) -> None:
+        """Checkpoint the full map (worldmap/serialize.py); resume with
+        System(load_map_path=path)."""
+        from ..worldmap.serialize import save_map
+
+        with self.map.update_lock:
+            save_map(self.map, path)
+
     def shutdown(self, out_dir: str = ".", save_map_path: str = "") -> None:
-        """Drain and join the local-mapping consumer thread, then write
-        CameraTrajectory.txt and KeyFrameTrajectory.txt to out_dir."""
-        if save_map_path:
-            raise _not_ported("save_map_path", "11.5", "map serialization")
+        """Drain and join the local-mapping consumer thread and wait for a
+        background GBA, then write CameraTrajectory.txt and
+        KeyFrameTrajectory.txt to out_dir, and the map to save_map_path."""
         self.local_mapping.stop()
+        if self.loop_closing.threaded_gba:
+            self.loop_closing.poll_gba(wait=True)
         self.save_trajectory(os.path.join(out_dir, "CameraTrajectory.txt"))
         self.save_keyframe_trajectory(
             os.path.join(out_dir, "KeyFrameTrajectory.txt"))
+        if save_map_path:
+            self.save_map(save_map_path)

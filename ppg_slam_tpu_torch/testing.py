@@ -255,6 +255,75 @@ class SyntheticExtractor:
         return feats
 
 
+def make_ring_scene(n_points=1200, seed=11, r_in=7.0, r_out=10.0,
+                    center=(3.0, 0.0, 0.0)):
+    """Annulus of landmarks around the loop circle's center: each camera
+    heading sees only its local arc, so opposite sides of the loop share no
+    landmarks (the covisibility graph cannot silently bridge the loop).
+    Copy of tests/synthetic_sequence.py's."""
+    rng = np.random.RandomState(seed)
+    scene = SyntheticScene(n_points=24, seed=seed)  # reuse line machinery
+    phi = rng.uniform(0, 2 * np.pi, n_points)
+    rr = rng.uniform(r_in, r_out, n_points)
+    y = rng.uniform(-2.0, 2.5, n_points)
+    pts = np.stack([center[0] + rr * np.sin(phi), center[1] + y,
+                    center[2] + rr * np.cos(phi)], 1).astype(np.float32)
+    scene.points = np.concatenate([pts, scene.points]).astype(np.float32)
+    # the 24 line points from the box scene sit near the start view
+    shift = len(pts)
+    scene.triplets = [(a + shift, b + shift, c + shift)
+                      for (a, b, c) in scene.triplets]
+    scene.segments = [(a + shift, b + shift) for (a, b) in scene.segments]
+    scene.n = len(scene.points)
+    d = rng.randn(scene.n, 256).astype(np.float32)
+    scene.descs = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return scene
+
+
+def make_loop_sequence(n_frames=240, fps=20.0, noise_px=0.5, seed=11):
+    """Closed circular trajectory with tangent heading (copy of
+    tests/synthetic_sequence.py's):
+
+      p(t) = Rc * [1 - cos(theta), 0, sin(theta)],  R(t) = Ry(theta)
+
+    with theta(t) = w t + A sin(W t), so the body yaws a full 360 deg while
+    circling, always looking at the local arc of a landmark ring (a constant
+    rate would leave metric scale unobservable to the IMU). Yaw drifts
+    monocular-inertially; start and far side share NO landmarks, so on
+    return the drift must be absorbed by loop closure. Closes exactly at
+    t = T."""
+    T = (n_frames - 1) / fps
+    w = 2 * np.pi / T
+    Rc = 3.0
+    A, W = 0.35, 1.1
+
+    def theta(tm):
+        return w * tm + A * np.sin(W * tm)
+
+    def dtheta(tm):
+        return w + A * W * np.cos(W * tm)
+
+    def ddtheta(tm):
+        return -A * W * W * np.sin(W * tm)
+
+    def accel(tm):
+        th, d1, d2 = theta(tm), dtheta(tm), ddtheta(tm)
+        return np.float32([
+            Rc * (d2 * np.sin(th) + d1 * d1 * np.cos(th)),
+            -0.15 * 1.3 * 1.3 * np.sin(1.3 * tm),
+            Rc * (d2 * np.cos(th) - d1 * d1 * np.sin(th)),
+        ])
+
+    def gyro(tm):
+        return np.float32([0.0, dtheta(tm), 0.0])
+
+    scene = make_ring_scene(seed=seed, center=(Rc, 0.0, 0.0))
+    return SyntheticSequence(
+        n_frames=n_frames, fps=fps, noise_px=noise_px, seed=seed,
+        scene=scene, accel_fn=accel, gyro_fn=gyro,
+        v0=(0.0, 0.15 * 1.3, Rc * dtheta(0.0)))
+
+
 # ---------------------------------------------------------------------------
 # rendered corridor: real images the PPG nets respond to, with the IMU of
 # the trajectory (a numpy port of bench.py's wireframe corridor, which
@@ -587,6 +656,162 @@ def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
     for g, mp in id_to_mp.items():
         mp.pos = mp.pos + dps[g]
     return wm, kfs, id_to_mp
+
+
+def small_gba_map(n_kfs=6, seed=5, noise_pt=0.02):
+    """A small consistent map of the port's world-map classes with noisy
+    points for a global BA to polish (copy of tests/test_async.py's
+    build_small_map). Returns (map, keyframes, scene)."""
+    from . import worldmap as wm
+
+    rng = np.random.RandomState(seed)
+    scene = SyntheticScene(seed=seed)
+    rig = wm.Rig(CAM, freq=200.0)
+    wmap = wm.Map(rig)
+    kfs, id_to_mp, prev = [], {}, None
+    for k in range(n_kfs):
+        Rcw, tcw = scene.pose(k * 4)
+        feats, ids = scene.render(Rcw, tcw)
+        f = wm.Frame(feats, timestamp=0.2 * k, rig=rig)
+        f.set_pose(Rcw, tcw)
+        kf = wm.KeyFrame(f, wmap)
+        kf.prev_kf = prev
+        if prev is not None:
+            prev.next_kf = kf
+        prev = kf
+        kfs.append(kf)
+        for i, g in enumerate(ids):
+            mp = id_to_mp.get(g)
+            if mp is None:
+                mp = wm.MapPoint(scene.points[g], kf)
+                mp.descriptor = scene.descs[g].copy()
+                id_to_mp[g] = mp
+                wmap.add_map_point(mp)
+            mp.add_observation(kf, i)
+            kf.add_map_point(mp, i)
+        wmap.add_keyframe(kf)
+    for kf in kfs:
+        kf.update_connections()
+    for mp in id_to_mp.values():
+        mp.update_normal_and_depth()
+        mp.pos = mp.pos + rng.randn(3).astype(np.float32) * noise_pt
+    wmap.kf_origin = kfs[0]
+    return wmap, kfs, scene
+
+
+def pose_graph_ring(n_kf, seed=0, covis=3, four_dof=False):
+    """A drifted essential graph of `n_kf` keyframes on a circle: a world
+    drift accumulates along the keyframes (a random walk of small Sim3s;
+    world yaw and translation only, where four_dof), the temporal chain and
+    covisibility edges to the next `covis` keyframes are measured from the
+    drifted poses (the map's own relative poses), and one loop edge
+    (last -> 0) from the truth. Returns a dict of f32/int64 numpy arrays:
+    drifted Rcw, tcw, s (Scw vertices); true Rcw, tcw; edges i, j and Sji
+    (SR, St, Ss); the 4-DoF forms Rwb, twb, dRij, dtij; fixed (KF 0)."""
+    from .geometry import so3
+
+    rng = np.random.RandomState(seed)
+    ang = 2 * np.pi * np.arange(n_kf) / n_kf
+    radius = max(2.0, n_kf * 0.05)
+    Rwc = so3.exp(np.stack([np.zeros(n_kf), np.zeros(n_kf), ang], 1)
+                  .astype(np.float32))
+    twc = np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                    np.zeros(n_kf)], 1).astype(np.float32)
+    DR, Dt, Ds = np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 1.0
+    Rd, td, sd = [], [], []
+    for k in range(n_kf):
+        if k:
+            w = (np.float32([0.0, 0.0, 0.004 * rng.randn()]) if four_dof
+                 else rng.randn(3).astype(np.float32) * 0.003)
+            dt = rng.randn(3).astype(np.float32) * 0.01
+            ds = 1.0 if four_dof else float(1.0 + 0.002 * rng.randn())
+            Dt = Ds * DR @ dt + Dt
+            DR = DR @ so3.exp(w)
+            Ds *= ds
+        R_, t_ = DR @ Rwc[k], Ds * DR @ twc[k] + Dt   # D o Twc, scale Ds
+        Rd.append(R_.T)
+        td.append(-(R_.T @ t_) / Ds)
+        sd.append(1.0 / Ds)
+    Rd = np.stack(Rd).astype(np.float32)
+    td = np.stack(td).astype(np.float32)
+    sd = np.asarray(sd, np.float32)
+    Rcw = np.transpose(Rwc, (0, 2, 1)).copy()
+    tcw = -np.einsum("nij,nj->ni", Rcw, twc).astype(np.float32)
+
+    def rel(R, t, s, i, j):  # Sji = Sj Si^-1
+        Rji = R[j] @ R[i].T
+        sji = s[j] / s[i]
+        return Rji, t[j] - sji * Rji @ t[i], sji
+
+    ii, jj = [], []
+    for k in range(n_kf - 1):
+        for d in range(1, covis + 2):
+            if k + d < n_kf:
+                ii.append(k)
+                jj.append(k + d)
+    meas = [rel(Rd, td, sd, i, j) for i, j in zip(ii, jj)]
+    ii.append(n_kf - 1)
+    jj.append(0)
+    meas.append(rel(Rcw, tcw, np.ones(n_kf, np.float32), n_kf - 1, 0))
+    SR = np.stack([m[0] for m in meas]).astype(np.float32)
+    St = np.stack([m[1] for m in meas]).astype(np.float32)
+    Ss = np.asarray([m[2] for m in meas], np.float32)
+    # Edge4DoF's Ti<-j from Sji (scale 1): the inverse rigid transform
+    dRij = np.transpose(SR, (0, 2, 1)).copy()
+    dtij = -np.einsum("nij,nj->ni", dRij, St).astype(np.float32)
+    Rwb = np.transpose(Rd, (0, 2, 1)).copy()
+    twb = -np.einsum("nij,nj->ni", Rwb, td).astype(np.float32)
+    fixed = np.zeros(n_kf, bool)
+    fixed[0] = True
+    return dict(Rcw=Rd, tcw=td, s=sd, Rcw_true=Rcw, tcw_true=tcw,
+                i=np.asarray(ii, np.int64), j=np.asarray(jj, np.int64),
+                SR=SR, St=St, Ss=Ss, Rwb=Rwb, twb=twb, dRij=dRij, dtij=dtij,
+                fixed=fixed)
+
+
+def sim3_matches(n=200, s=1.2, outliers=0.3, seed=5, cam=CAM):
+    """Matched camera-frame points of two keyframes for the Sim3 RANSAC:
+    X1 = s R X2 + t, 0.5 px of pixel noise, a share `outliers` of the X2
+    displaced. Returns (X1, X2, uv1, uv2, (R, t, s), outlier indices)."""
+    from .geometry import so3
+
+    rng = np.random.RandomState(seed)
+    X1 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(3, 8, n)], 1).astype(np.float32)
+    R = so3.exp(np.float32([0.05, -0.1, 0.08]))
+    t = np.float32([0.3, -0.1, 0.2])
+    X2 = (((X1 - t) @ R) / s).astype(np.float32)
+    uv1 = cam.project_np(X1) + rng.randn(n, 2).astype(np.float32) * 0.5
+    uv2 = cam.project_np(X2) + rng.randn(n, 2).astype(np.float32) * 0.5
+    bad = rng.choice(n, int(outliers * n), replace=False)
+    X2[bad] += rng.randn(len(bad), 3).astype(np.float32) * 0.5
+    return (X1, X2, uv1.astype(np.float32), uv2.astype(np.float32),
+            (R, t, s), bad)
+
+
+def sim3_pair(m=60, n_bad=8, seed=31, cam=CAM):
+    """OptimizeSim3's input (tests/test_pose_graph.py's TestOptimizeSim3
+    recipe): m points seen from two cameras related by a Sim3, n_bad of
+    the camera-1 pixels displaced, and a perturbed initial Sim3. Returns
+    ((R0, t0, s0), X1, X2, uv1, uv2, (R, t, s), outlier indices)."""
+    from .geometry import so3
+    from .geometry.sim3 import Sim3
+
+    rng = np.random.RandomState(seed)
+    X1 = np.stack([rng.uniform(-2, 2, m), rng.uniform(-1.5, 1.5, m),
+                   rng.uniform(4, 8, m)], 1).astype(np.float32)
+    R = so3.exp(np.float32([0.05, -0.1, 0.08]))
+    t = np.float32([0.4, -0.2, 0.3])
+    s = np.float32(1.35)
+    X2 = (((X1 - t) @ R) / s).astype(np.float32)
+    uv1 = cam.project_np(X1).astype(np.float32)
+    uv2 = cam.project_np(X2).astype(np.float32)
+    bad = rng.choice(m, n_bad, replace=False)
+    uv1[bad] += rng.randn(n_bad, 2).astype(np.float32) * 50 + 10
+    d = torch.tensor([0.05, -0.03, 0.04, 0.02, -0.01, 0.03, 0.05])
+    S0 = Sim3.exp(d) @ Sim3(*(torch.as_tensor(a) for a in (R, t, s)))
+    return (tuple(a.numpy() for a in S0), X1, X2, uv1, uv2, (R, t, s),
+            bad)
 
 
 def port_namespace(device, cam=CAM):

@@ -1,11 +1,12 @@
 """The host world map: a copy of ppg_slam_tpu/worldmap (numpy bookkeeping,
-no device code). worldmap/serialize.py is not ported yet."""
+no device code), with map checkpoints (serialize.py)."""
 
 from .elements import (MapColine, MapEdge, MapPoint, descriptor_distance,
                        reset_element_ids)
 from .frame import Frame, KeyFrame, Rig, reset_frame_ids
 from .grid import FeatureGrid, image_bounds
 from .map import Map
+from .serialize import load_map, save_map
 
 
 def reset_ids() -> None:
@@ -25,5 +26,7 @@ __all__ = [
     "FeatureGrid",
     "image_bounds",
     "Map",
+    "load_map",
+    "save_map",
     "reset_ids",
 ]

@@ -389,20 +389,26 @@ def test_entry_points_default_to_cuda():
 
 def test_estimator_runs_without_jax():
     """The port imports neither jax nor ppg_slam_tpu: both are blocked in
-    a fresh interpreter, which imports the pipeline, matching, BoW,
-    two-view and evaluation modules and runs local_inertial_ba on the CPU
-    on a small synthetic sequence map."""
+    a fresh interpreter, which imports the pipeline (loop closing
+    included), matching, Sim3, pose-graph, map-checkpoint, BoW, two-view
+    and evaluation modules and runs local_inertial_ba on the CPU on a small
+    synthetic sequence map."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["ppg_slam_tpu"] = None
         import numpy as np
         import ppg_slam_tpu_torch.bow
+        import ppg_slam_tpu_torch.estimator.pose_graph
+        import ppg_slam_tpu_torch.geometry.sim3
         import ppg_slam_tpu_torch.geometry.two_view
         import ppg_slam_tpu_torch.matching
+        import ppg_slam_tpu_torch.matching.sim3_solver
         import ppg_slam_tpu_torch.pipeline.local_mapping
+        import ppg_slam_tpu_torch.pipeline.loop_closing
         import ppg_slam_tpu_torch.pipeline.system
         import ppg_slam_tpu_torch.pipeline.tracking
+        import ppg_slam_tpu_torch.worldmap.serialize
         import ppg_slam_tpu_torch.utils.evaluation
         from ppg_slam_tpu_torch import testing
         from ppg_slam_tpu_torch.estimator.ba import local_inertial_ba

@@ -293,14 +293,106 @@ def test_system_refuses_what_is_not_ported(tmp_path):
     settings = str(tmp_path / "settings.yaml")
     with open(settings, "w") as f:
         f.write(SETTINGS)
-    for kw, item in ((dict(active_loop_closing=True), "11.1"),
-                     (dict(threaded_gba=True), "11.3"),
-                     (dict(async_frontend=True), "11.3"),
-                     (dict(use_viewer=True), "11.6"),
-                     (dict(load_map_path="map.npz"), "11.5")):
-        kw.setdefault("active_loop_closing", False)
+    for kw, item in ((dict(async_frontend=True), "11.3"),
+                     (dict(use_viewer=True), "11.6")):
         with pytest.raises(NotImplementedError, match=item):
             System(None, settings, device="cpu", **kw)
+
+
+def test_system_defaults_build_active_loop_closing(tmp_path):
+    """System's defaults (the reference's: active_loop_closing=True) build
+    an active LoopClosing on the System's device."""
+    from ppg_slam_tpu_torch.pipeline import LoopClosing, System
+
+    settings = str(tmp_path / "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(SETTINGS)
+    saved = pwm.Map.imu_ini_time
+    try:
+        system = System(None, settings, device="cpu")
+    finally:
+        pwm.Map.imu_ini_time = saved
+    lc = system.loop_closing
+    assert isinstance(lc, LoopClosing) and lc.active
+    assert lc.device == torch.device("cpu") and not lc.threaded_gba
+    assert system.local_mapping.loop_closer is lc
+
+
+def _track_system(system, seq, frames):
+    last_t = seq.frame_times[frames[0] - 1] if frames[0] else -1.0
+    states = []
+    for i in frames:
+        t = seq.frame_times[i]
+        system.track_monocular(np.zeros((2, 2), np.uint8), t,
+                               seq.imu_between(last_t, t))
+        last_t = t
+        states.append(system.state)
+    return states
+
+
+def test_system_threaded_gba_tracks(tmp_path):
+    """threaded_gba=True: the closer's GBA goes to its thread, local
+    mapping polls for aborts, and the System tracks."""
+    from ppg_slam_tpu_torch.pipeline import System
+
+    settings = str(tmp_path / "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(SETTINGS)
+    saved = pwm.Map.imu_ini_time
+    try:
+        pwm.reset_ids()
+        system = System(None, settings, threaded_gba=True, device="cpu")
+        assert system.loop_closing.threaded_gba
+        assert system.local_mapping.threaded
+        seq = testing.SyntheticSequence(n_frames=SYSTEM_FRAMES)
+        system.tracking.extractor = testing.SyntheticExtractor(seq)
+        states = _track_system(system, seq, range(SYSTEM_FRAMES))
+        system.shutdown(str(tmp_path))
+    finally:
+        pwm.Map.imu_ini_time = saved
+    assert states[-1] == ptr.OK
+
+
+RESUME_FRAMES, RESUME_TAIL = 48, 16
+
+
+def test_system_saves_and_resumes_a_map(tmp_path):
+    """shutdown(save_map_path=) writes the map; System(load_map_path=)
+    loads it, starts LOST and relocalizes into it on the tail of the same
+    sequence (the vocabulary re-indexes the loaded keyframes)."""
+    from ppg_slam_tpu_torch.pipeline import System
+
+    voc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "voc_euroc_9x3.npz")
+    if not os.path.exists(voc):
+        pytest.skip("vocabulary asset not available")
+    settings = str(tmp_path / "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(SETTINGS)
+    path = str(tmp_path / "run.ppgmap")
+    saved = pwm.Map.imu_ini_time
+    try:
+        pwm.reset_ids()
+        seq = testing.SyntheticSequence(n_frames=RESUME_FRAMES)
+        first = System(voc, settings, device="cpu")
+        first.tracking.extractor = testing.SyntheticExtractor(seq)
+        _track_system(first, seq, range(RESUME_FRAMES))
+        first.shutdown(str(tmp_path), save_map_path=path)
+        n_kf = first.map.n_keyframes()
+        assert n_kf > 10
+
+        second = System(voc, settings, load_map_path=path, device="cpu")
+        assert second.state == ptr.LOST
+        assert second.map.n_keyframes() == n_kf
+        start = RESUME_FRAMES - RESUME_TAIL
+        ex = testing.SyntheticExtractor(seq)
+        ex.frame_idx = start
+        second.tracking.extractor = ex
+        states = _track_system(second, seq, range(start, RESUME_FRAMES))
+    finally:
+        pwm.Map.imu_ini_time = saved
+    assert second.tracking.n_resets == 0
+    assert states[-1] == ptr.OK, states
 
 
 def test_pipeline_defaults_to_cuda(tmp_path):
@@ -312,8 +404,11 @@ def test_pipeline_defaults_to_cuda(tmp_path):
     with open(settings, "w") as f:
         f.write(SETTINGS)
     wmap = pwm.Map(pwm.Rig(testing.CAM))
+    from ppg_slam_tpu_torch.pipeline import LoopClosing
+
     for call in (lambda: ptr.Tracking(wmap, None),
                  lambda: PLocalMapping(wmap),
-                 lambda: System(None, settings, active_loop_closing=False)):
+                 lambda: LoopClosing(wmap),
+                 lambda: System(None, settings)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
