@@ -26,8 +26,15 @@ end to end on CUDA and held to tests/test_loop_closing.py's checks; Sim3
 exp/log, the Sim3 RANSAC, optimize_sim3 and both essential graphs, at the
 loop map's size and at 300 keyframes, on CUDA against CPU tensors, timed
 and profiled; the background GBA against the synchronous one; a map
-checkpoint round trip), and prints one line per phase. Every phase's
-failure is fatal.
+checkpoint round trip), then the user entry points (phase 11: 64 frames of
+phase 9's corridor written as a EuRoC ASL folder through the port's PNG
+codec, run through cli.mono_inertial in the serving configuration with the
+frame prefetcher, the threaded GBA, renders, --eval-gt and --save-map, the
+fused kernels required once a frame; the prefetcher's features bit-equal
+to extract()'s; the CLI resumed with --load-map on a stretch from one of
+the run's keyframes, starting LOST and relocalizing near the truth;
+cli.train_vocabulary on 8 of the frames), and prints one line per phase.
+Every phase's failure is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
 lines, one JSON line with the kernel table, and as the last line
@@ -102,6 +109,19 @@ SYS_BUSY_FRAMES = 10
 SYS_DEVICE_CALLS = ("integrate", "two_view_reconstruct", "pose_optimization",
                     "pose_inertial_optimization", "inertial_optimization",
                     "solve_ba", "conformal_scan")
+
+# phase 11: the user entry points (the CLI) on the card
+CLI_FRAMES = 64           # the IMU init (~frame 40) + 24 steady frames
+CLI_RENDER_EVERY = 10
+CLI_PREFETCH_FRAMES = 8   # (c) prefetch parity: 2 batches of 4
+CLI_RESUME_FRAMES = 12    # (d) the resumed stretch
+CLI_RESUME_KF_T = 1.0     # (d) it starts at the first keyframe from 1 s on
+CLI_RELOC_WITHIN = 3      # (d) tracking must be OK by its 3rd frame
+CLI_RELOC_M = 0.1         # (d) relocalized centre against the truth
+CLI_VOC_EVERY = 8         # (e) 8 of the 64 frames
+# (e) the tree: with 4 x 4 words every word is in all 8 frames, so every
+# IDF weight is ln(8/8) = 0 and a frame transforms to no word at all
+CLI_VOC_K, CLI_VOC_L = 10, 2
 
 # phase 10: loop closing on the card
 LOOP_FRAMES = 168         # testing.make_loop_sequence, as tests/ run it
@@ -184,6 +204,45 @@ def sampler_bound_ms(n, h, w8):
     """Least time for n samples: read 8 B of coordinates each and the table
     once, write 1 B each, at the HBM rate."""
     return (n * 9 + h * w8) / HBM_BYTES_PER_S * 1e3
+
+
+def filtered_png(img, filters=(0, 1, 2, 3, 4)):
+    """An 8-bit grey PNG of `img` whose rows cycle through the given
+    scanline filters, as the adaptive filtering of the libpng that wrote
+    EuRoC's and TUM-VI's frames mixes them (datasets/png.py write_png
+    writes filter 0 only)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from ppg_slam_tpu_torch.datasets.png import SIGNATURE
+
+    h, w = img.shape
+    x = img.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    f = np.asarray(filters)[np.arange(h) % len(filters)]
+    rows = np.empty((h, w + 1), np.uint8)
+    rows[:, 0] = f
+    rows[:, 1:] = (x - preds[f, np.arange(h)]) & 255
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
 
 
 def bound_ms(n_bytes, n_ops):
@@ -1320,8 +1379,8 @@ class Smoke:
         voc = os.path.join(ROOT, "assets", "voc_euroc_9x3.npz")
         tbc = load_settings(os.path.join(ROOT, "configs", "euroc.yaml"))[
             "Tbc"]
-        corridor = testing.render_corridor(n_frames=SYS_FRAMES, seed=7,
-                                           Tbc=tbc)
+        corridor = self.corridor = testing.render_corridor(
+            n_frames=SYS_FRAMES, seed=7, Tbc=tbc)
         say(f"  corridor: {SYS_FRAMES} frames 752x480 rendered, "
             f"{len(corridor.imu)} IMU samples, "
             f"{time.time() - t_phase:.1f} s")
@@ -1841,6 +1900,288 @@ class Smoke:
             f"poses and points bit-equal [{self.card}]")
 
     # ------------------------------------------------------------------
+    def phase11_cli(self):
+        """The user entry points on the card. (a) the first CLI_FRAMES
+        frames of phase 9's corridor as a EuRoC ASL folder (PNGs written by
+        datasets/png.py, the 200 Hz IMU, the body trajectory as truth);
+        (b) `cli.mono_inertial.run` on it in the serving configuration
+        with the prefetcher, the threaded GBA, renders, --eval-gt and
+        --save-map; (c) FramePrefetcher against extract() frame by frame,
+        bit-equal, in the serving and f32 configurations; (d) the CLI again
+        with --load-map on a stretch from one of (b)'s keyframes: it starts
+        LOST and relocalizes; (e) cli.train_vocabulary on 8 of the
+        frames."""
+        import tempfile
+
+        t_phase = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            folder, settings, gt = self.cli_data(tmp)
+            run = self.cli_run(tmp, folder, settings, gt)
+            self.cli_prefetch_parity()
+            resume = self.cli_resume(tmp, settings, gt, run)
+            self.cli_vocabulary(tmp, folder, settings)
+        say(f"phase 11 ok: the CLI on the card: {run['summary']}; "
+            f"{resume}; prefetch bit-equal; vocabulary CLI; in "
+            f"{time.time() - t_phase:.1f} s [{self.card}]")
+
+    def sys_corridor(self):
+        """Phase 9's corridor (rendered here when phase 9 did not run)."""
+        if not hasattr(self, "corridor"):
+            from ppg_slam_tpu_torch import testing
+            from ppg_slam_tpu_torch.pipeline.system import load_settings
+
+            tbc = load_settings(os.path.join(ROOT, "configs",
+                                             "euroc.yaml"))["Tbc"]
+            self.corridor = testing.render_corridor(n_frames=SYS_FRAMES,
+                                                    seed=7, Tbc=tbc)
+        return self.corridor
+
+    def cli_data(self, tmp):
+        """(a) The ASL folder, phase 9's settings file and the truth."""
+        from ppg_slam_tpu_torch import testing
+
+        t0 = time.time()
+        corridor = self.sys_corridor()
+        folder = os.path.join(tmp, "corridor")
+        gt = testing.write_asl_folder(corridor, folder,
+                                      frames=range(CLI_FRAMES))
+        settings = self.system_settings(tmp)
+        say(f"  (a) ASL folder: {CLI_FRAMES} PNGs of 752x480, "
+            f"{len(corridor.imu)} IMU rows, truth in TUM format, "
+            f"{time.time() - t0:.1f} s")
+        return folder, settings, gt
+
+    def cli_run(self, tmp, folder, settings, gt):
+        """(b) The README's run command, in-process, on the card."""
+        import numpy as np
+
+        from ppg_slam_tpu_torch.cli.mono_inertial import run
+        from ppg_slam_tpu_torch.datasets import read_gray
+        from ppg_slam_tpu_torch.pipeline import OK
+
+        out = os.path.join(tmp, "out")
+        renders = os.path.join(tmp, "renders")
+        os.makedirs(out)
+        map_path = os.path.join(tmp, "corridor.ppgmap")
+        self.reset_launches()
+        t0 = time.time()
+        stats = run("euroc", os.path.join(ROOT, "assets",
+                                          "voc_euroc_9x3.npz"),
+                    settings, os.path.join(ROOT, "assets",
+                                           "ppg_weights.npz"),
+                    folder, out_dir=out, progress_every=0, serving=True,
+                    async_frontend=True, threaded_gba=True,
+                    render_dir=renders, render_every=CLI_RENDER_EVERY,
+                    eval_gt=gt, save_map=map_path)
+        wall = time.time() - t0
+        self.cli_launches = self.read_launches(CLI_FRAMES, "the CLI run")
+        stages = stats["stages"]
+        counters = stages.get("counters", {})
+        check(stats["frames"] == CLI_FRAMES and stats["states"][-1] == OK,
+              f"CLI: {stats['frames']} frames, last state "
+              f"{stats['states'][-1:]}, state events "
+              f"{stats['state_events']}")
+        check(stages.get("tracking.imu_init", {}).get("count", 0) >= 1,
+              "CLI: the IMU never initialized")
+        check(stats["device"].startswith("cuda"), f"CLI ran on "
+                                                  f"{stats['device']}")
+        off_card = {k: v for k, v in counters.items()
+                    if k.startswith("device.") and not k.endswith(".cuda")}
+        check(not off_card, f"CLI: calls off the card: {off_card}")
+        for name, min_rows in (("CameraTrajectory.txt", CLI_FRAMES // 2),
+                               ("KeyFrameTrajectory.txt", 5)):
+            rows = np.loadtxt(os.path.join(out, name), ndmin=2)
+            check(rows.shape[1] == 8 and len(rows) >= min_rows
+                  and np.isfinite(rows).all(),
+                  f"CLI: {name} has {rows.shape} rows, not TUM")
+        check(np.isfinite(stats["ate_rmse"])
+              and stats["ate_rmse"] < SYS_ATE_M,
+              f"CLI: ATE {stats['ate_rmse']} m (limit {SYS_ATE_M})")
+        pngs = sorted(os.listdir(renders))
+        n_r = CLI_FRAMES // CLI_RENDER_EVERY
+        check(len(pngs) == 2 * n_r, f"CLI: renders {pngs}")
+        for name in pngs:
+            img = read_gray(os.path.join(renders, name))
+            want = (768, 1024) if name.startswith("map_") else (500, 752)
+            check(img.shape == want, f"CLI: render {name} is {img.shape}")
+        kf_t = np.loadtxt(os.path.join(out, "KeyFrameTrajectory.txt"),
+                          ndmin=2)[:, 0]
+        split = {k[len("tracking."):]: round(v["mean_ms"], 1)
+                 for k, v in stages.items()
+                 if k.startswith("tracking.") and isinstance(v, dict)}
+        decode = self.cli_decode_ms(tmp, folder)
+        say(f"  (b) CLI run (serving, prefetch, threaded GBA): "
+            f"{stats['frames']} frames in {wall:.1f} s, frame median "
+            f"{stats['median_ms']:.1f} ms, mean {stats['mean_ms']:.1f}, p95 "
+            f"{stats['p95_ms']:.1f}; {stats['keyframes']} KFs, "
+            f"{stats['map_points']} map points, ATE "
+            f"{stats['ate_rmse']:.4f} m; launches {self.cli_launches}; "
+            f"stage mean ms {split}; device {stats['device']}; "
+            f"png.read_gray of one frame: {decode} [{self.card}]")
+        return dict(map=map_path, out=out, kf_t=kf_t,
+                    summary=(f"{CLI_FRAMES} frames, median "
+                             f"{stats['median_ms']:.1f} ms, ATE "
+                             f"{stats['ate_rmse']:.4f} m"))
+
+    def cli_decode_ms(self, tmp, folder):
+        """The host's PNG decode of one 752x480 frame, median of 5: as the
+        CLI's folder stores it (filter 0: the row-at-a-time branch of
+        datasets/png.py), and with its rows cycling through all five
+        filters (the average and Paeth filters take the anti-diagonal
+        branch). Both read back the frame exactly."""
+        from ppg_slam_tpu_torch.datasets import read_gray
+
+        data = os.path.join(folder, "mav0", "cam0", "data")
+        plain = os.path.join(data, sorted(os.listdir(data))[0])
+        img = read_gray(plain)
+        mixed = os.path.join(tmp, "filters_01234.png")
+        with open(mixed, "wb") as f:
+            f.write(filtered_png(img))
+        ms = {}
+        for name, path in (("filter 0", plain), ("filters 0-4", mixed)):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = read_gray(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+                check((got == img).all(), f"png.read_gray: {name} differs")
+            ms[name] = f"{statistics.median(times):.2f} ms"
+        return ms
+
+    def cli_prefetch_parity(self):
+        """(c) FramePrefetcher(batch=4, depth=2) against extract(), frame
+        by frame, bit-equal, serving and f32; and the raw device outputs of
+        one extract_batch_async batch against one frame's."""
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch.frontend import PPGExtractor
+        from ppg_slam_tpu_torch.frontend.prefetch import FramePrefetcher
+
+        frames = self.sys_corridor().frames[:CLI_PREFETCH_FRAMES]
+        cam = self.settings_camera("euroc.yaml")
+        for cfg in (dict(desc_transfer="device", compute_dtype="bf16"),
+                    dict()):
+            ex = PPGExtractor(cam, **cfg)
+            pf = FramePrefetcher(ex, batch=4, depth=2)
+            for f in frames:
+                pf.feed(f)
+            got = [pf.get() for _ in frames]
+            ref = [ex.extract(f) for f in frames]
+            for k, (g, r) in enumerate(zip(got, ref)):
+                for name in ("kp_pos", "kp_pos_un", "kp_score", "kp_out",
+                             "edges", "edge_score", "colines"):
+                    check(np.array_equal(getattr(g, name), getattr(r, name)),
+                          f"(c) {cfg}: frame {k} {name} differs")
+                check(g.connected == r.connected,
+                      f"(c) {cfg}: frame {k} connected differs")
+                check(np.array_equal(g.descriptors, r.descriptors),
+                      f"(c) {cfg}: frame {k} host descriptors differ")
+                if cfg:
+                    check(torch.equal(g.desc_dev, r.desc_dev),
+                          f"(c) {cfg}: frame {k} desc_dev differs")
+            raw = ex.extract_batch_async(frames[:4]).host_outputs()
+            for k, a in enumerate(raw):
+                b = ex._device_outputs(frames[k])
+                check(a.keys() == b.keys() and all(
+                    np.array_equal(a[n], b[n]) for n in a),
+                      f"(c) {cfg}: frame {k} raw outputs differ")
+        say(f"  (c) prefetch: {CLI_PREFETCH_FRAMES} frames through "
+            f"FramePrefetcher(4, 2) on the extractor's stream equal "
+            f"extract() bit for bit (keypoints, scores, edges, colines, "
+            f"descriptors on host and device; candidates, good, lscore), "
+            f"serving and f32")
+
+    def cli_resume(self, tmp, settings, gt, run):
+        """(d) --load-map of (b)'s map on a stretch that starts at one of
+        its keyframes: tracking starts LOST, is OK within CLI_RELOC_WITHIN
+        frames, at a pose within CLI_RELOC_M of the truth."""
+        import numpy as np
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.cli.mono_inertial import run as cli
+        from ppg_slam_tpu_torch.pipeline import LOST, OK
+        from ppg_slam_tpu_torch.utils.evaluation import (associate,
+                                                         load_tum, umeyama)
+
+        corridor = self.sys_corridor()
+        t_kf = float(next(t for t in run["kf_t"]
+                          if t >= 1.0 + CLI_RESUME_KF_T))  # stamps from 1 s
+        k0 = int(round((t_kf - 1.0) * corridor.fps))
+        folder = os.path.join(tmp, "resume")
+        testing.write_asl_folder(corridor, folder,
+                                 frames=range(k0, k0 + CLI_RESUME_FRAMES))
+        out = os.path.join(tmp, "out_resume")
+        os.makedirs(out)
+        t0 = time.time()
+        stats = cli("euroc", os.path.join(ROOT, "assets",
+                                          "voc_euroc_9x3.npz"),
+                    settings, os.path.join(ROOT, "assets",
+                                           "ppg_weights.npz"),
+                    folder, out_dir=out, progress_every=0, serving=True,
+                    async_frontend=True, threaded_gba=True,
+                    load_map=run["map"])
+        wall = time.time() - t0
+        ev = stats["state_events"]
+        check(ev and ev[0]["to_state"] == LOST and ev[0]["t"] is None,
+              f"(d) the resumed run did not start LOST: {ev}")
+        states = stats["states"]
+        check(OK in states[:CLI_RELOC_WITHIN],
+              f"(d) not relocalized within {CLI_RELOC_WITHIN} frames: "
+              f"states {states}, events {ev}")
+        k_ok = states.index(OK)
+        # the first run's Sim3 alignment to the truth, applied to the
+        # relocalized frame's position
+        te, pe = load_tum(os.path.join(run["out"], "CameraTrajectory.txt"))
+        tg, pg = load_tum(gt)
+        ie, ig = associate(te, tg)
+        s, R, t = umeyama(pe[ie], pg[ig])
+        tr, pr = load_tum(os.path.join(out, "CameraTrajectory.txt"))
+        j = int(np.argmin(np.abs(tg - tr[0])))
+        err = float(np.linalg.norm(s * R @ pr[0] + t - pg[j]))
+        check(abs(tg[j] - tr[0]) < 1e-3 and err < CLI_RELOC_M,
+              f"(d) relocalized {err:.4f} m from the truth (limit "
+              f"{CLI_RELOC_M})")
+        counters = stats["stages"].get("counters", {})
+        reloc = stats["stages"].get("tracking.relocalization", {})
+        say(f"  (d) resume: --load-map from KF at {t_kf:.2f} s (frame {k0}),"
+            f" {len(states)} frames in {wall:.1f} s: started LOST, OK at "
+            f"frame {k_ok} ({reloc.get('count', 0)} relocalization calls, "
+            f"mean {reloc.get('mean_ms', float('nan')):.1f} ms), "
+            f"relocalized centre {err:.4f} m from the truth; states "
+            f"{states}; frame median {stats['median_ms']:.1f} ms; "
+            f"relocalizations {counters.get('relocalization_attempts')} "
+            f"[{self.card}]")
+        return f"resumed LOST, relocalized at frame {k_ok}, {err:.4f} m"
+
+    def cli_vocabulary(self, tmp, folder, settings):
+        """(e) cli.train_vocabulary on the card over 8 of the frames, a
+        small tree; the file loads and transforms one frame's features."""
+        from ppg_slam_tpu_torch.bow import Vocabulary
+        from ppg_slam_tpu_torch.cli import train_vocabulary
+
+        out = os.path.join(tmp, "voc.bin")
+        t0 = time.time()
+        train_vocabulary.main([settings, os.path.join(ROOT, "assets",
+                                                      "ppg_weights.npz"),
+                               folder, out, "--k", str(CLI_VOC_K),
+                               "--L", str(CLI_VOC_L),
+                               "--every", str(CLI_VOC_EVERY)])
+        wall = time.time() - t0
+        voc = Vocabulary.load(out)
+        desc = self.extractor_f32().extract(
+            self.sys_corridor().frames[0]).descriptors
+        bow, _ = voc.transform(desc)
+        check(voc.k == CLI_VOC_K and voc.L == CLI_VOC_L
+              and voc.n_words > CLI_VOC_K and bow,
+              f"(e) vocabulary: k {voc.k}, L {voc.L}, {voc.n_words} words, "
+              f"{len(bow)} words in a frame")
+        say(f"  (e) vocabulary CLI: {CLI_FRAMES // CLI_VOC_EVERY} frames, "
+            f"{voc.n_words} words, {os.path.getsize(out)} bytes in "
+            f"{wall:.1f} s; a frame's {len(desc)} descriptors -> "
+            f"{len(bow)} words")
+
+    # ------------------------------------------------------------------
     def kernel_table(self):
         rows = [self.sampler_rows[n] for n in MAIN_SIZES]
         table = [{
@@ -1852,6 +2193,7 @@ class Smoke:
             # kernels below instead
             "launches": self.sys_launches["nearest_binary_packed"],
             "launches_frontend": self.launches["nearest_binary_packed"],
+            "launches_cli": self.cli_launches["nearest_binary_packed"],
             "on_main_path": False,
             "max_abs_err": self.max_abs_err,
             # one frame's four sampler calls at their former main-path sizes
@@ -1873,6 +2215,7 @@ class Smoke:
                           }[name],
                 "launches": self.sys_launches[name],
                 "launches_frontend": self.launches[name],
+                "launches_cli": self.cli_launches[name],
                 "on_main_path": True,
                 "max_abs_err": self.fused_err[name],
                 "ms": row["ms"],
@@ -1902,7 +2245,7 @@ def main() -> int:
               smoke.phase3_kernel_parity, smoke.phase4_main_f32,
               smoke.phase5_serving, smoke.phase6_batch, smoke.phase7_tumvi,
               smoke.phase8_estimator, smoke.phase9_system,
-              smoke.phase10_loop_closing]
+              smoke.phase10_loop_closing, smoke.phase11_cli]
     for k, phase in enumerate(phases, 1):
         try:
             phase()

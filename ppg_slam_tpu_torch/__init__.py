@@ -7,7 +7,7 @@ imports `torch` and never `jax` or `ppg_slam_tpu`.
 Package layout (ported so far):
   geometry/   camera models (pinhole + radtan, Kannala-Brandt-8), SO(3),
               SE(3), two-view initialization
-  models/     the PPG CNNs as one NCHW `nn.Module`
+  models/     the PPG CNNs as one NCHW `nn.Module`, the TorchScript converter
   ops/        device ops: NMS, heat refine/remap, pair probing, line
               validation, descriptor sampling, gated matching
   kernels/    hand-written CUDA kernels, built with nvcc at first use
@@ -17,9 +17,14 @@ Package layout (ported so far):
   estimator/  pose and pose-inertial optimization, bundle adjustment,
               inertial initialization
   worldmap/   the host map (keyframes, map points, PPG edges and colines)
-  bow/        the DBoW3 vocabulary
-  matching/   the host matcher, the device gated-match service, PnP
-  pipeline/   System, Tracking, LocalMapping, inactive LoopClosing, settings
+  bow/        the DBoW3 vocabulary and its training
+  matching/   the host matcher, the device gated-match service, PnP, the
+              Sim3 RANSAC
+  pipeline/   System, Tracking, LocalMapping, LoopClosing, settings
+  datasets/   EuRoC / TUM-VI / UMA loaders, a PNG codec and CLAHE (numpy;
+              no OpenCV)
+  viz/        the headless viewer (numpy rasterizer)
+  cli/        mono_inertial, evaluate, train_vocabulary, profile_frontend
   utils/      profiling, trajectory evaluation
   testing.py  fixtures shared by the tests and chip_smoke.py
 

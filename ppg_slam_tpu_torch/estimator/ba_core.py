@@ -382,7 +382,16 @@ def _reproj_batch(cam: CameraModel, Rcb, tcb, Rg, tg, Xg, uv,
 
 def _inv3x3(A):
     """Closed-form batched 3x3 inverse via the adjugate (callers pass
-    regularized SPD blocks)."""
+    regularized SPD blocks). A finite block whose f32 determinant overflows
+    gets a zero inverse, which holds its landmark still for the step: its
+    true inverse is below 1e-12 anyway. Such a block belongs to a landmark
+    on a coline of huge weight (entries of ~1e13). The JAX package's
+    jit-compiled solver returns this zero block (its fused multiply-adds
+    carry the determinant to inf, and cofactor * (1 / inf) is 0); the same
+    arithmetic run op by op gives inf - inf = NaN, and a NaN step that
+    rejects every iteration of the solve. Every other block follows the
+    reference's arithmetic: a determinant of exactly 0, or a NaN or an
+    infinity in the block, still gives a non-finite inverse."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -396,12 +405,14 @@ def _inv3x3(A):
     c32 = b * g - a * h
     c33 = a * e - b * d
     det = a * c11 + b * c21 + c * c31
-    inv_det = 1.0 / det
     rows = torch.stack([
         torch.stack([c11, c12, c13], -1),
         torch.stack([c21, c22, c23], -1),
         torch.stack([c31, c32, c33], -1),
     ], -2)
+    # a NaN or an infinity in the block makes some cofactor non-finite
+    overflow = torch.isfinite(rows).all(-1).all(-1) & ~torch.isfinite(det)
+    inv_det = torch.where(overflow, 0.0, 1.0 / det)
     return rows * inv_det[..., None, None]
 
 

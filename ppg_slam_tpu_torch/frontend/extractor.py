@@ -19,6 +19,11 @@ kp_pos_un, and edge scores travel as f16.
 
 `extract_async` returns a handle whose `result()` finishes the frame, so the
 device work of later frames can be queued before the host finish of this one.
+`extract_batch_async` (the frame prefetcher's call, frontend/prefetch.py)
+goes further: on CUDA it uploads through pinned memory and runs the frames'
+nets and decode on a stream the extractor owns, so they overlap the
+caller's work on its own stream; `result()` makes the caller's stream wait
+for them before it touches a device-resident output.
 """
 
 from __future__ import annotations
@@ -82,8 +87,10 @@ def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 class _Handle:
-    """In-flight extraction of one or more frames: the outputs' host copies
-    are queued on the stream; `result()` waits for them and finishes."""
+    """In-flight extraction of one or more frames (the JAX package's
+    _Handle and _BatchHandle): the outputs' host copies are queued on the
+    current stream, then an event; `result()` waits for them and
+    finishes."""
 
     def __init__(self, extractor: "PPGExtractor", outs: List[dict],
                  desc_devs: List[Optional[torch.Tensor]], single: bool):
@@ -99,6 +106,14 @@ class _Handle:
     def host_outputs(self) -> List[Dict[str, np.ndarray]]:
         if self._event is not None:
             self._event.synchronize()
+            # the device-resident descriptors may come from the extractor's
+            # stream: order the consumer's stream after them, and tell the
+            # caching allocator that stream uses them
+            consumer = torch.cuda.current_stream(self._ex.device)
+            consumer.wait_event(self._event)
+            for d in self._desc_devs:
+                if d is not None:
+                    d.record_stream(consumer)
         return [{k: v.numpy() for k, v in h.items()} for h in self._host]
 
     def result(self) -> Union["FrameFeatures", List["FrameFeatures"]]:
@@ -133,6 +148,7 @@ class PPGExtractor:
         self.compute_dtype = compute_dtype
         self.net = load_net(weights_path or DEFAULT_WEIGHTS, compute_dtype,
                             self.device)
+        self._stream = None  # extract_batch_async's CUDA stream
         self._has_dist = any(abs(d) > 0 for d in camera.dist)
         self._mapx = self._mapy = None
         if self._has_dist:
@@ -240,6 +256,28 @@ class PPGExtractor:
         tensor (possibly already on the device). One upload and one host
         synchronisation for the batch; nets and decode run per frame."""
         return self._run(images, single=False).result()
+
+    def extract_batch_async(self, images: Sequence[np.ndarray],
+                            mesh=None) -> _Handle:
+        """extract_batch of (H, W) uint8 host frames without waiting: the
+        handle's `result()` gives the list of FrameFeatures. On CUDA the
+        batch runs on the extractor's own stream, after the work already
+        queued on the caller's stream: the frames go up through pinned
+        memory, and the nets, the decode (the fused kernels included) and
+        the device-to-host copies queue there. The features are those
+        extract() gives, frame by frame."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "extract_batch_async(mesh=) needs the multi-GPU port, which "
+                "is not ported yet: ROADMAP.md §1 item 11.7")
+        stack = torch.from_numpy(np.stack([np.asarray(i) for i in images]))
+        if self.device.type != "cuda":
+            return self._run(stack, single=False)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            return self._run(stack.pin_memory(), single=False)
 
     # -- host finish ------------------------------------------------------
     @torch.inference_mode()

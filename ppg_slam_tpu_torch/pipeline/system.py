@@ -4,8 +4,7 @@ settings files: a port of ppg_slam_tpu/pipeline/system.py.
 `System` loads the vocabulary and the settings, builds the map, the
 extractor and the pipeline modules, routes frames and IMU, and writes the
 TUM-format trajectories. Everything it builds runs on its `device` (CUDA
-unless the caller names another). Options whose modules are not ported yet
-raise NotImplementedError naming their ROADMAP.md item.
+unless the caller names another).
 
 The settings are OpenCV FileStorage YAML (`%YAML:1.0`). OpenCV is not a
 dependency of the port, so `load_settings` parses the subset the configs use:
@@ -132,12 +131,6 @@ def camera_from_settings(s: dict) -> CameraModel:
         width=int(s["width"]), height=int(s["height"]), fps=s["fps"] or 20.0)
 
 
-def _not_ported(option: str, item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"System({option}) needs {what}, which is not ported yet: "
-        f"ROADMAP.md §1 item {item}")
-
-
 class System:
     def __init__(self, vocabulary_path: Optional[str], settings_path: str,
                  weights_path: Optional[str] = None, use_viewer: bool = False,
@@ -159,8 +152,10 @@ class System:
         compute_dtype="bf16" is the serving configuration (descriptors stay
         on the device for gated matching). load_map_path: resume from a map
         saved by save_map(); tracking starts LOST and relocalizes into it.
-        Not ported yet, and refused: async_frontend=True (ROADMAP.md item
-        11.3), use_viewer=True (11.6)."""
+        async_frontend: extract frames ahead of tracking through a
+        FramePrefetcher (feed_frame() them in order first). use_viewer:
+        render the offline viewer's PNGs to viewer_out_dir every
+        viewer_every frames."""
         from ..bow import Vocabulary
         from ..frontend.extractor import PPGExtractor
         from ..worldmap import Map, Rig
@@ -169,11 +164,6 @@ class System:
         from .loop_closing import LoopClosing
         from .tracking import Tracking
 
-        if async_frontend:
-            raise _not_ported("async_frontend=True", "11.3",
-                              "the frame prefetcher")
-        if use_viewer:
-            raise _not_ported("use_viewer=True", "11.6", "the viewer")
         self.device = resolve_device(device)
         s = load_settings(settings_path)
         cam = camera_from_settings(s)
@@ -201,6 +191,13 @@ class System:
                                       desc_transfer=desc_transfer,
                                       compute_dtype=compute_dtype,
                                       device=self.device)
+        self.prefetcher = None
+        if async_frontend:
+            from ..frontend.prefetch import FramePrefetcher
+
+            self.prefetcher = FramePrefetcher(self.extractor,
+                                              batch=prefetch_batch,
+                                              depth=prefetch_depth)
         self.loop_closing = LoopClosing(self.map,
                                         active=active_loop_closing,
                                         device=self.device)
@@ -220,22 +217,33 @@ class System:
             self.tracking.resume_from_map()
         self.local_mapping.tracking = self.tracking
         self.loop_closing.local_mapper = self.local_mapping
+        self.viewer = None
+        if use_viewer:
+            from ..viz import Viewer
+
+            self.viewer = Viewer(self.map, out_dir=viewer_out_dir,
+                                 render_every=viewer_every)
+            self.tracking.viewer = self.viewer
 
     # ------------------------------------------------------------------
     def feed_frame(self, image: np.ndarray) -> None:
-        """Stage a future frame's extraction (async front-end). A no-op
-        here: async_frontend is not ported, so every frame is extracted in
-        track_monocular."""
+        """Async front-end: stage a FUTURE frame's extraction (its device
+        work overlaps host tracking). Call ahead of track_monocular in feed
+        order; a no-op when async_frontend is off."""
+        if self.prefetcher is not None:
+            self.prefetcher.feed(image)
 
     def track_monocular(self, image: np.ndarray, timestamp: float,
                         imu: Optional[np.ndarray] = None):
         """System::TrackMonocular (System.cpp:122-143). imu rows:
         (ax, ay, az, wx, wy, wz, t). A finished background GBA is applied
-        first (a safe point)."""
+        first (a safe point). With async_frontend, `image` must have been
+        feed_frame()'d (in order); its features come from the prefetcher."""
         self.poll_background()
         if imu is not None and len(imu):
             self.tracking.grab_imu(imu)
-        return self.tracking.grab_image(image, timestamp)
+        feats = self.prefetcher.get() if self.prefetcher is not None else None
+        return self.tracking.grab_image(image, timestamp, feats=feats)
 
     def poll_background(self) -> None:
         """Apply finished background-GBA results at a safe point (the

@@ -917,7 +917,10 @@ class Tracking:
 
     def track_reference_keyframe(self) -> bool:
         frame = self.current
-        if self.ref_kf is None:
+        # The first frame after resume_from_map has no last frame to start
+        # the pose from (the JAX package reads last_frame.Rcw and raises
+        # there); it fails here and goes to relocalization.
+        if self.ref_kf is None or self.last_frame is None:
             return False
         if frame.bow_vec is None and self.map.vocabulary is not None:
             frame.bow_vec, frame.feat_vec = self.map.vocabulary.transform(

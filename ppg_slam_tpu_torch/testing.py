@@ -254,6 +254,14 @@ class SyntheticExtractor:
             feats.desc_fetch = lambda h=host: h
         return feats
 
+    def extract_batch_async(self, images):
+        """The frame prefetcher's call: a handle whose result() is the
+        extract() of each image, in order."""
+        import types
+
+        feats = [self.extract(im) for im in images]
+        return types.SimpleNamespace(result=lambda: feats)
+
 
 def make_ring_scene(n_points=1200, seed=11, r_in=7.0, r_out=10.0,
                     center=(3.0, 0.0, 0.0)):
@@ -520,6 +528,51 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
         imu=np.stack(imu_rows).astype(np.float64), gravity=g, fps=fps)
 
 
+def write_asl_folder(corridor, root: str, t0_ns: int = 1_000_000_000,
+                     frames=None) -> str:
+    """Write a rendered corridor (render_corridor's namespace) as a EuRoC
+    ASL folder under `root`: mav0/cam0/data/<ns>.png (8-bit grey, through
+    datasets/png.py) + mav0/cam0/data.csv, mav0/imu0/data.csv (t[ns], w,
+    a) and the body trajectory in TUM format (gt_body.txt: the poses the
+    CLI's CameraTrajectory.txt writes), with frame k at t0_ns + k / fps.
+    frames: the frame indices to write (default all; the IMU is written
+    whole). Returns the ground-truth file's path."""
+    import os
+
+    from .datasets.png import write_png
+    from .geometry import so3
+
+    idx = range(len(corridor.frames)) if frames is None else frames
+    data = os.path.join(root, "mav0", "cam0", "data")
+    os.makedirs(data, exist_ok=True)
+    os.makedirs(os.path.join(root, "mav0", "imu0"), exist_ok=True)
+
+    def ns(t):
+        return t0_ns + int(round(t * 1e9))
+
+    rows, gt = [], []
+    for k in idx:
+        t = ns(corridor.times[k])
+        write_png(os.path.join(data, f"{t}.png"), corridor.frames[k])
+        rows.append(f"{t},{t}.png")
+        Rwb, twb = corridor.body_poses[k]
+        q = so3.matrix_to_quat(np.asarray(Rwb, np.float32))
+        gt.append(f"{t * 1e-9:.9f} " + " ".join(
+            f"{v:.9f}" for v in (*twb, *q)))
+    with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    with open(os.path.join(root, "mav0", "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,a_RS_S_x,"
+                "a_RS_S_y,a_RS_S_z\n")
+        for r in corridor.imu:
+            f.write(f"{ns(r[6])}," + ",".join(
+                repr(float(v)) for v in (*r[3:6], *r[:3])) + "\n")
+    gt_path = os.path.join(root, "gt_body.txt")
+    with open(gt_path, "w") as f:
+        f.write("\n".join(gt) + "\n")
+    return gt_path
+
+
 def sqrtm_psd_inv(M: np.ndarray) -> np.ndarray:
     """sqrt of the PSD-projected inverse (the tracker's whitening factor)."""
     M = 0.5 * (M + M.T)
@@ -598,7 +651,7 @@ def imu_links(seq, times):
 
 
 def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
-              colines=False):
+              colines=False, vocabulary=None):
     """A map of keyframes at `poses` observing `points` through `views`,
     with the perturbation `pert` applied to KFs 2.. and all points.
 
@@ -607,10 +660,11 @@ def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
     Preintegrated to copy; keep: per-KF
     boolean masks over the view's keypoints that become observations (all
     when None); colines: create the map colines of every KF's colinear
-    triplets (Map.create_map_colines). Returns (map, keyframes, {global
-    id: MapPoint})."""
+    triplets (Map.create_map_colines); vocabulary: the map's, indexing
+    every KF's BoW vector. Returns (map, keyframes, {global id:
+    MapPoint})."""
     rig = pkg.wm.Rig(pkg.cam)
-    wm = pkg.wm.Map(rig)
+    wm = pkg.wm.Map(rig, vocabulary=vocabulary)
     kfs, id_to_mp, prev = [], {}, None
     for k, ((Rcw, tcw), (feats, ids)) in enumerate(zip(poses, views)):
         f = pkg.wm.Frame(pkg.Features(**feats), timestamp=times[k], rig=rig)
@@ -630,6 +684,8 @@ def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
                 wm.add_map_point(mp)
             mp.add_observation(kf, i)
             kf.add_map_point(mp, i)
+        if vocabulary is not None:
+            kf.bow_vec, kf.feat_vec = vocabulary.transform(kf.descriptors)
         wm.add_keyframe(kf)
     for kf in kfs:
         kf.update_connections()

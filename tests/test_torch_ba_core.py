@@ -368,6 +368,45 @@ def test_inv3x3_and_robust_kernels_match_reference():
                                        err_msg=f"{fn} {name}")
 
 
+# A landmark block from a local BA of the CLI on a half-size render of the
+# corridor: a coline of huge weight gives entries of ~1e13 (eigenvalues
+# 6.6e6, 2.2e13, 2.2e13).
+HUGE_BLOCK = [[3826690293760.0, -2261437644800.0, 8015812493312.0],
+              [-2261437644800.0, 21671842938880.0, 999999143936.0],
+              [8015812493312.0, 999999143936.0, 18409404235776.0]]
+
+
+def test_inv3x3_of_an_overflowing_block_matches_reference():
+    """The f32 determinant of HUGE_BLOCK overflows. The JAX package's
+    solver runs _inv3x3 jit-compiled, where it returns a zero block (the
+    landmark is held still for the step); run op by op, as the port ran it,
+    the adjugate gave inf - inf = NaN, and the NaN step rejected every
+    iteration of the local BA (lambda 100 -> 1e8, the map left as it was).
+    The port now returns the zero block there, and what the jit-compiled
+    reference returns everywhere else: the regular blocks within 1e-5
+    relative, and the same non-finite entries for a block whose
+    determinant is exactly 0 and for a block that holds a NaN or an
+    infinity, so an upstream fault still rejects the step."""
+    rng = np.random.RandomState(6)
+    A = rng.randn(8, 3, 3).astype(np.float32)
+    A = A @ A.transpose(0, 2, 1) + 0.1 * np.eye(3, dtype=np.float32)
+    A[3] = np.float32(HUGE_BLOCK)
+    A[5] = np.float32([[2, 1, 0], [1, 2, 0], [0, 0, 0]])   # det == 0
+    A[6, 1, 1] = np.nan
+    A[7, 2, 0] = np.inf
+    got = P._inv3x3(_t(A)).numpy()
+    ref = np.asarray(jax.jit(J._inv3x3)(jnp.asarray(A)))
+    assert np.isfinite(ref[3]).all() and not ref[3].any()
+    np.testing.assert_array_equal(got[3], ref[3])
+    for k in (5, 6, 7):
+        assert not np.isfinite(ref[k]).all(), k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
+    ok = [0, 1, 2, 4]
+    assert np.abs(got[ok] - ref[ok]).max() <= 1e-5 * np.abs(ref[ok]).max()
+    # op by op, the reference's own formula gives the NaN block
+    assert np.isnan(np.asarray(J._inv3x3(jnp.asarray(A)))[3]).all()
+
+
 def test_solver_defaults_follow_the_device():
     """pose_cg_iters/backtrack None resolve as the reference resolves them
     per backend: PCG(64) with backtracking on CUDA, Cholesky without on the

@@ -387,18 +387,32 @@ def test_entry_points_default_to_cuda():
             call()
 
 
-def test_estimator_runs_without_jax():
-    """The port imports neither jax nor ppg_slam_tpu: both are blocked in
-    a fresh interpreter, which imports the pipeline (loop closing
-    included), matching, Sim3, pose-graph, map-checkpoint, BoW, two-view
-    and evaluation modules and runs local_inertial_ba on the CPU on a small
-    synthetic sequence map."""
+def test_estimator_runs_without_jax(tmp_path):
+    """The port imports neither jax nor ppg_slam_tpu, nor cv2 or PIL: all
+    four are blocked in a fresh interpreter, which imports the pipeline
+    (loop closing included), matching, Sim3, pose-graph, map-checkpoint,
+    BoW (vocabulary training included), two-view and evaluation modules,
+    the user entry points (datasets, the CLIs, the prefetcher, the viewer,
+    the weight converter, ops/lines.py), round-trips a PNG and runs
+    local_inertial_ba on the CPU on a small synthetic sequence map."""
     code = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["ppg_slam_tpu"] = None
+        import os
+        for blocked in ("jax", "ppg_slam_tpu", "cv2", "PIL"):
+            sys.modules[blocked] = None
         import numpy as np
         import ppg_slam_tpu_torch.bow
+        import ppg_slam_tpu_torch.bow.train
+        import ppg_slam_tpu_torch.cli.evaluate
+        import ppg_slam_tpu_torch.cli.mono_inertial
+        import ppg_slam_tpu_torch.cli.train_vocabulary
+        import ppg_slam_tpu_torch.datasets.clahe
+        import ppg_slam_tpu_torch.frontend.prefetch
+        import ppg_slam_tpu_torch.models.convert_weights
+        import ppg_slam_tpu_torch.ops.lines
+        import ppg_slam_tpu_torch.viz
+        from ppg_slam_tpu_torch.datasets import (load_euroc, read_gray,
+                                                 write_png)
         import ppg_slam_tpu_torch.estimator.pose_graph
         import ppg_slam_tpu_torch.geometry.sim3
         import ppg_slam_tpu_torch.geometry.two_view
@@ -441,15 +455,20 @@ def test_estimator_runs_without_jax():
             wm.add_keyframe(kf)
             prev = kf
         local_inertial_ba(prev, wm, device="cpu")
+        img = (np.arange(48 * 64) % 251).astype(np.uint8).reshape(48, 64)
+        write_png(os.path.join(sys.argv[1], "a.png"), img)
+        assert (read_gray(os.path.join(sys.argv[1], "a.png")) == img).all()
         err = np.median([np.linalg.norm(mp.pos - seq.scene.points[g])
                          for g, mp in mps.items() if not mp.is_bad()])
         assert err < 5e-3, err
-        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ppg_slam_tpu")
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "ppg_slam_tpu",
+                                           "cv2", "PIL")
                        for m, v in sys.modules.items() if v is not None)
         print("ok", len(mps), err)
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok"), proc.stdout

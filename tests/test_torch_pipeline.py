@@ -288,15 +288,57 @@ def test_system_writes_the_reference_trajectories(tmp_path):
 
 
 def test_system_refuses_what_is_not_ported(tmp_path):
+    """System refuses no option: with async_frontend=True and
+    use_viewer=True it builds a FramePrefetcher and a Viewer, tracks on
+    features that come through the prefetcher in feed order, and the viewer
+    writes its PNGs (read back through datasets/png.py)."""
+    from ppg_slam_tpu_torch.datasets import read_gray
+    from ppg_slam_tpu_torch.frontend.prefetch import FramePrefetcher
     from ppg_slam_tpu_torch.pipeline import System
+    from ppg_slam_tpu_torch.viz import Viewer
 
     settings = str(tmp_path / "settings.yaml")
     with open(settings, "w") as f:
         f.write(SETTINGS)
-    for kw, item in ((dict(async_frontend=True), "11.3"),
-                     (dict(use_viewer=True), "11.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            System(None, settings, device="cpu", **kw)
+    renders = tmp_path / "renders"
+    saved = pwm.Map.imu_ini_time
+    try:
+        pwm.reset_ids()
+        system = System(None, settings, async_frontend=True,
+                        use_viewer=True, viewer_out_dir=str(renders),
+                        viewer_every=6, active_loop_closing=False,
+                        device="cpu")
+        assert isinstance(system.prefetcher, FramePrefetcher)
+        assert isinstance(system.viewer, Viewer)
+        assert system.tracking.viewer is system.viewer
+        seq = testing.SyntheticSequence(n_frames=SYSTEM_FRAMES)
+        ex = testing.SyntheticExtractor(seq)
+        system.prefetcher.ex = ex
+        states, last_t, fed = [], -1.0, 0
+        for i in range(SYSTEM_FRAMES):
+            t = seq.frame_times[i]
+            # the CLI's look-ahead: batch x depth frames fed ahead
+            while fed < min(i + 1 + 8, SYSTEM_FRAMES):
+                system.feed_frame(np.zeros((2, 2), np.uint8))
+                fed += 1
+            system.track_monocular(np.zeros((2, 2), np.uint8), t,
+                                   seq.imu_between(last_t, t))
+            last_t = t
+            states.append(system.state)
+        system.shutdown(str(tmp_path))
+    finally:
+        pwm.Map.imu_ini_time = saved
+    assert states[-1] == ptr.OK, states
+    # every frame came through the prefetcher, in batches of 4
+    assert system.prefetcher.n_dispatches == SYSTEM_FRAMES // 4
+    assert ex.frame_idx == SYSTEM_FRAMES
+    pngs = sorted(os.listdir(renders))
+    n = SYSTEM_FRAMES // 6
+    assert len(pngs) == 2 * n, pngs
+    imgs = {name: read_gray(str(renders / name)) for name in pngs}
+    assert all(im.dtype == np.uint8 for im in imgs.values())
+    last_map = imgs[f"map_{n * 6:06d}.png"]
+    assert last_map.shape == (768, 1024) and (last_map != 255).any()
 
 
 def test_system_defaults_build_active_loop_closing(tmp_path):

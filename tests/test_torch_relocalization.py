@@ -128,3 +128,66 @@ class TestRelocalization:
         seq, wmap, tracking, states, reloc_at = reloc_run
         early = [kf for kf in wmap.keyframes if kf.frame_id < BLIND_START]
         assert len(early) >= 5
+
+
+@pytest.mark.parametrize("start", [44, 20])
+def test_resume_relocalizes_where_reference_raises(start):
+    """A Tracking resumed into a saved map (resume_from_map: LOST, no last
+    frame) on frames from `start` on, over a 12-keyframe visual-only map
+    of the synthetic sequence built in both packages. The first frame
+    matches the reference keyframe by BoW, so the JAX package's
+    track_reference_keyframe reads last_frame.Rcw and raises; the port's
+    fails cleanly there, and the frame relocalizes."""
+    import types
+
+    import synthetic_sequence as jseq
+    import ppg_slam_tpu.worldmap as jwm
+    from ppg_slam_tpu.bow import Vocabulary as JVocabulary
+    from ppg_slam_tpu.frontend.extractor import FrameFeatures as JFeatures
+    from ppg_slam_tpu.imu import Preintegrated as JPreintegrated
+    from ppg_slam_tpu.pipeline.tracking import Tracking as JTracking
+
+    seq = testing.SyntheticSequence(n_frames=60)
+    jax_seq = jseq.SyntheticSequence(n_frames=60)  # the same, in JAX types
+    kf_frames = range(0, 48, 4)
+    poses = [seq.frame_tcw(i) for i in kf_frames]
+    views = testing.render_views(seq.scene, poses)
+    pert = ([], [], np.zeros((len(seq.scene.points), 3), np.float32))
+    times = [seq.frame_times[i] for i in kf_frames]
+    sides = {
+        "port": (testing.port_namespace("cpu"), Vocabulary, pwm,
+                 lambda m: Tracking(m, testing.SyntheticExtractor(seq),
+                                    device="cpu")),
+        "jax": (types.SimpleNamespace(wm=jwm, Features=JFeatures,
+                                      cam=jax_seq.scene.cam,
+                                      Preintegrated=JPreintegrated),
+                JVocabulary, jwm,
+                lambda m: JTracking(m, jseq.SyntheticExtractor(jax_seq))),
+    }
+    states = {}
+    for side, (pkg, voc_cls, wm_mod, make) in sides.items():
+        wm_mod.reset_ids()
+        wmap, _, _ = testing.build_map(pkg, poses, views, seq.scene.points,
+                                       pert, times,
+                                       vocabulary=voc_cls.load(VOC_PATH))
+        saved = wm_mod.Map.imu_ini_time
+        wm_mod.Map.imu_ini_time = 1e9  # visual-only
+        try:
+            tracking = make(wmap)
+            tracking.extractor.frame_idx = start
+            tracking.resume_from_map()
+            assert tracking.state == 3  # LOST
+            if side == "jax":
+                with pytest.raises(AttributeError, match="Rcw"):
+                    tracking.grab_image(np.zeros((2, 2), np.uint8),
+                                        seq.frame_times[start])
+                continue
+            states[side] = []
+            for i in range(start, start + 4):
+                tracking.grab_image(np.zeros((2, 2), np.uint8),
+                                    seq.frame_times[i])
+                states[side].append(tracking.state)
+        finally:
+            wm_mod.Map.imu_ini_time = saved
+    assert states["port"] == [OK] * 4
+    assert tracking.n_resets == 0
