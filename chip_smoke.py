@@ -33,8 +33,15 @@ frame prefetcher, the threaded GBA, renders, --eval-gt and --save-map, the
 fused kernels required once a frame; the prefetcher's features bit-equal
 to extract()'s; the CLI resumed with --load-map on a stretch from one of
 the run's keyframes, starting LOST and relocalizing near the truth;
-cli.train_vocabulary on 8 of the frames), and prints one line per phase.
-Every phase's failure is fatal.
+cli.train_vocabulary on 8 of the frames), then large windows and the
+device mesh (phase 12: global and full inertial BA on 64-300-keyframe
+windows through both routes of solve_ba, the dense fold and the implicit
+Schur matvecs, held to each other and at 64-66 keyframes to the CPU, timed,
+profiled and their peak memory read, the entry points' route read from the
+profiler's counters; solve_ba_sharded, the sharded dry run, GBA and FIBA
+with mesh= and extract_batch(mesh=) over two shards of the card, each held
+to the single-device call), and prints one line per phase. Every phase's
+failure is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
 lines, one JSON line with the kernel table, and as the last line
@@ -45,6 +52,7 @@ nor ppg_slam_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -94,6 +102,27 @@ EST_WARM_CALLS = 5
 TV_KF = 2                 # two-view between keyframes 0 and TV_KF
 FIBA_SCALE = 1.5          # the b_init full_inertial_ba's mis-scaled start
 INIT_SCALE = 2.5          # the scale inertial initialization recovers
+
+# phase 12: large windows (the implicit-Schur route) and the device mesh
+LARGE_KFS = (64, 66, 128, 200, 300)   # prefixes of one 300-KF window
+LARGE_POINTS = 120000     # its scene: ~280 observations a keyframe
+LARGE_CPU_KFS = (64, 66)  # the sizes also solved on the CPU
+# The implicit route against the dense one (and a sharded solve against one
+# device). The first LM step, at every size: KF positions and points, each
+# difference over the step's own size (2.9e-5-9.7e-3 on the card). The
+# whole solve at LARGE_CPU_KFS: chi2 relative, and states within phase 8's
+# FIBA limits. From 128 KFs on the whole solves are reported, not held:
+# their PCG(64) steps stop short of the exact reduced step (printed at
+# MESH_KFS), and two LM paths part on round-off (on the card: chi2 0.03-0.9
+# % apart after 20-25 iterations, still falling, and once a dense FIBA at
+# 300 KFs stalled at 18x the implicit route's chi2).
+ROUTE_STEP_REL = 2e-2
+ROUTE_CHI2_REL = 1e-3
+MESH_KFS = 128            # the window solved over the mesh
+# make_vi_problem's 5-KF problem: ill-conditioned, its f32 solves part by
+# millimetres with the summation order (tests/test_torch_parallel.py)
+VI_5KF = dict(n_kf=5, n_mp=48, n_obs=160, n_col=12, seed=3)
+VI_CHI2_REL, VI_T_M, VI_POINT_M = 5e-4, 1e-3, 1e-2
 
 # phase 9: the System on the rendered corridor
 SYS_FRAMES = 100          # 5 s at 20 Hz
@@ -308,6 +337,25 @@ def loop_error(Rcw, tcw, s, g):
     meas = Sim3(*(torch.as_tensor(np.asarray(g[k][-1]))
                   for k in ("SR", "St", "Ss")))
     return float(torch.linalg.norm((meas.inverse() @ est).log()))
+
+
+@contextlib.contextmanager
+def deterministic_sums():
+    """CUDA's index_add_ in a fixed order inside the block: two solves then
+    part by their own arithmetic only, not by the order of atomic adds
+    (which moves an LM path's accept/reject decisions from run to run).
+    Ops with no deterministic version run as usual, unwarned."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
 
 
 def host_ms(fn, setup=None, calls=EST_WARM_CALLS):
@@ -1543,6 +1591,7 @@ class Smoke:
         checkpoint."""
         t_phase = time.time()
         loop = self.loop_run()
+        self.loop_map, self.loop_voc = loop["map"], loop["voc"]
         self.loop_functions(loop["n_kf"])
         self.background_gba()
         self.checkpoint(loop)
@@ -1639,6 +1688,14 @@ class Smoke:
         det = stats["loop_closing.detect"]
         ms = {n.split(".", 1)[1]: round(s.total / s.count * 1e3, 1)
               for n, s in stats.items()}
+        # the loop GBA (full_inertial_ba past 64 KFs on CUDA) takes the
+        # implicit route; each of its chunked solves counts once
+        gba = stats.get("loop_closing.gba")
+        self.loop_gba = dict(
+            ms=gba.total / gba.count * 1e3 if gba else None,
+            implicit_solves=devices.get(f"device.solve_ba_implicit{card}", 0),
+            solves=devices.get(f"device.solve_ba{card}", 0),
+            ate_before=pre["ate"], ate_after=post)
         say(f"  (b) loop run: {LOOP_FRAMES} frames in {wall:.1f} s, "
             f"{wmap.n_keyframes()} KFs (max id {wmap.max_kf_id}), "
             f"{lc.n_loops_closed} loop(s) closed on KF {pre['kf_id']}; "
@@ -1646,7 +1703,10 @@ class Smoke:
             f"error {rp:.3f} deg; detect {det.count} KFs, "
             f"{det.total / det.count * 1e3:.1f} ms per KF (max "
             f"{det.max * 1e3:.1f}); ms per call {ms} (correct includes the "
-            f"essential graph and the GBA); calls by device {devices} "
+            f"essential graph and the GBA); calls by device {devices}; "
+            f"loop GBA {self.loop_gba['ms'] or 0:.1f} ms with "
+            f"{self.loop_gba['implicit_solves']} implicit-route solves of "
+            f"{self.loop_gba['solves']} solve_ba calls in the run "
             f"[{self.card}]")
         return dict(map=wmap, voc=voc, n_kf=wmap.n_keyframes(),
                     summary=(f"loop closed on KF {pre['kf_id']}, KF-ATE "
@@ -2182,6 +2242,448 @@ class Smoke:
             f"{len(bow)} words")
 
     # ------------------------------------------------------------------
+    # ------------------------------------------------------------------
+    def phase12_large_and_mesh(self):
+        """Large windows and the device mesh. (a) global and full inertial
+        BA's problems on prefixes of one 300-keyframe EuRoC-width window
+        (testing.EurocWindow(long=True)) at 64-300 KFs, each solved on
+        CUDA through both routes of solve_ba (dense fold, implicit
+        matvecs), held to each other and, at 64 and 66 KFs, to the CPU;
+        timed, profiled, their peak memory read; and the entry points' own
+        route at each size, from the profiler's counters. (b)
+        solve_ba_sharded over Mesh([cuda:0, cuda:0]) (and over distinct
+        cards where there are two) on make_vi_problem and on the 128-KF
+        window against the single-device solve, the sharded dry run,
+        global and full inertial BA with mesh= on phase 10's loop map
+        against no mesh, and extract_batch(mesh=) on the 8 EuRoC frames of
+        phases 4-5, bit-equal, the fused kernels launched once a frame."""
+        t_phase = time.time()
+        large = self.large_windows()
+        mesh = self.mesh_paths(large)
+        say(f"phase 12 ok: large windows {list(LARGE_KFS)} KFs through both "
+            f"routes, implicit from 66 KFs; the mesh: {mesh}; in "
+            f"{time.time() - t_phase:.1f} s [{self.card}]")
+
+    def window_problem(self, wmap, flavor):
+        """(states, points, prob, kf_dof, opts) of global (visual) or full
+        inertial BA on `wmap`, host arrays as the entry points gather them,
+        with the options they resolve to on CUDA past 64 KFs, but a fixed
+        iteration count (tol 0): with the entry points' early exit the
+        two routes can stop an iteration apart."""
+        import numpy as np
+
+        from ppg_slam_tpu_torch.estimator import ba
+
+        rig = wmap.rig
+        kfs = sorted(wmap.all_keyframes(), key=lambda k: k.mnId)
+        mps = wmap.all_map_points()
+        kf_index = {k.mnId: i for i, k in enumerate(kfs)}
+        mp_index = {mp.mnId: j for j, mp in enumerate(mps)}
+        states = ba._body_states(kfs, rig)
+        points = np.stack([mp.pos for mp in mps]).astype(np.float32)
+        r_kf, r_mp, r_uv, _ = ba._gather_reproj(kfs, kf_index, mps, mp_index)
+        c_idx, c_w, _ = ba._gather_colines(wmap, mp_index)
+        kf_dof = np.zeros((len(kfs), 15), bool)
+        if flavor == "gba":
+            prob = ba._pad_problem(r_kf, r_mp, r_uv, c_idx, c_w)
+            kf_dof[:, :6] = True
+            kf_dof[0] = False
+            opts = ba.BAOptions(iters=20, lambda0=1e-5, pose_cg_iters=64,
+                                backtrack=True, tol=0.0)
+        else:
+            links = ba._gather_links(kfs, kf_index)
+            prob = ba._pad_problem(r_kf, r_mp, r_uv, c_idx, c_w, links=links,
+                                   bias_priors=([len(kfs) - 1], [1e2],
+                                                [1e6]))
+            kf_dof[:] = True
+            kf_dof[0, :6] = False
+            opts = ba.BAOptions(iters=25, lambda0=1e-5, reproj_kernel="huber",
+                                pose_cg_iters=64, backtrack=True, tol=0.0)
+        return states, points, prob, kf_dof, opts
+
+    def solve_args(self, problem, device):
+        """solve_ba's positional arguments of a window_problem on
+        `device`."""
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.estimator.ba_core import BAProblem, KFStates
+
+        states, points, prob, kf_dof, _ = problem
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return (KFStates(*map(t, states)), t(points), BAProblem(*map(t, prob)),
+                t(kf_dof), torch.ones(len(points), dtype=torch.bool,
+                                      device=device),
+                t(np.eye(3, dtype=np.float32)), t(np.zeros(3, np.float32)),
+                testing.EUROC_CAM)
+
+    def route_diff(self, a, b, gauge):
+        """(max KF position difference, median point difference, chi2
+        relative difference) of two solves' (states, points, info); with
+        `gauge`, the free scale divided out about KF 0 first (only KF 0 is
+        fixed in a visual GBA)."""
+        import numpy as np
+
+        (sa, pa, ia), (sb, pb, ib) = a, b
+        ta, tb = sa.t.cpu().double().numpy(), sb.t.cpu().double().numpy()
+        qa, qb = pa.cpu().double().numpy(), pb.cpu().double().numpy()
+        o, s = tb[0], 1.0
+        if gauge:
+            s = float(np.median(np.linalg.norm(tb[1:] - o, axis=1)
+                                / np.linalg.norm(ta[1:] - o, axis=1)))
+        d_t = float(np.abs(s * (ta - o) - (tb - o)).max())
+        d_p = float(np.median(np.linalg.norm(s * (qa - o) - (qb - o),
+                                             axis=1)))
+        ca, cb = float(ia["final_chi2"]), float(ib["final_chi2"])
+        return d_t, d_p, abs(ca - cb) / cb
+
+    def step_diff(self, a, b, start):
+        """(KF position, point, chi2) differences of two first LM steps,
+        (states, points, info) each, from `start` (solve_ba's arguments):
+        the largest KF position difference over the largest KF step, the
+        median point difference over the median point step, and chi2
+        relative."""
+        import numpy as np
+
+        (sa, pa, ia), (sb, pb, ib) = a, b
+        host = lambda x: x.cpu().double().numpy()
+        t0, p0 = host(start[0].t), host(start[1])
+        da, db = host(sa.t) - t0, host(sb.t) - t0
+        qa, qb = host(pa) - p0, host(pb) - p0
+        d_t = float(np.linalg.norm(da - db, axis=1).max()
+                    / np.linalg.norm(db, axis=1).max())
+        d_p = float(np.median(np.linalg.norm(qa - qb, axis=1))
+                    / np.median(np.linalg.norm(qb, axis=1)))
+        ca, cb = float(ia["final_chi2"]), float(ib["final_chi2"])
+        return d_t, d_p, abs(ca - cb) / cb
+
+    def large_windows(self):
+        """Phase 12 (a); returns its rows and the 128-KF problems with
+        their single-device solves."""
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.estimator import ba
+        from ppg_slam_tpu_torch.estimator.ba_core import solve_ba
+        from ppg_slam_tpu_torch.imu import Preintegrated
+        from ppg_slam_tpu_torch.utils import profiler
+
+        t0 = time.time()
+        cam = testing.EUROC_CAM
+        win = testing.EurocWindow(seed=SEED, n_kf=max(LARGE_KFS),
+                                  n_points=LARGE_POINTS, long=True)
+        cpu_ns = testing.port_namespace("cpu", cam)
+        rig = cpu_ns.wm.Rig(cam)
+        pre = []
+        for meas in win.links:
+            p = Preintegrated(np.zeros(6, np.float32), rig.nga, rig.nga_walk,
+                              device="cpu")
+            p.integrate_measurements(*meas)
+            pre.append(p)
+        say(f"  (a) window: {max(LARGE_KFS)} KFs, {win.n_landmarks} "
+            f"landmarks, {win.n_obs} observations "
+            f"({win.n_obs / max(LARGE_KFS):.0f} a KF), built in "
+            f"{time.time() - t0:.1f} s")
+        rows, keep = [], {}
+        for n in LARGE_KFS:
+            t_size = time.time()
+            wmap, kfs, _ = win.build(cpu_ns, pre, n_kf=n)
+            for flavor in ("gba", "fiba"):
+                problem = self.window_problem(wmap, flavor)
+                opts = problem[4]
+                args = self.solve_args(problem, self.dev)
+                gauge = flavor == "gba"
+                first, held = {}, {}
+                for route in ("dense", "implicit"):
+                    def call(o=opts, route=route):
+                        return solve_ba(*args, o,
+                                        implicit=route == "implicit")
+                    # the first LM step, which the routes are held by at
+                    # every size (also the warm-up)
+                    with deterministic_sums():
+                        first[route] = call(dataclasses.replace(opts,
+                                                                iters=1))
+                        if n in LARGE_CPU_KFS:
+                            held[route] = call()
+                    # two iterations under the profiler
+                    k, c, busy, flagged = device_profile(
+                        lambda: call(dataclasses.replace(opts, iters=2)))
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t1 = time.perf_counter()
+                    full = call()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t1) * 1e3
+                    mem = torch.cuda.max_memory_allocated() / 2 ** 20
+                    held.setdefault(route, full)
+                    info = full[2]
+                    c0, c1 = (float(info["chi2_hist"][0]),
+                              float(info["final_chi2"]))
+                    check(np.isfinite(c1) and c1 < c0,
+                          f"{flavor} {n} KFs {route}: chi2 {c0} -> {c1}")
+                    rows.append(dict(
+                        flavor=flavor, n_kf=n, route=route,
+                        n_mp=int(len(problem[1])),
+                        n_obs=int(problem[2].r_kf.shape[0]), ms=ms,
+                        iters=int(info["iters_run"]),
+                        host_syncs=int(info["host_syncs"]), peak_mib=mem,
+                        device_ms_per_iter=busy / 2, kernels_per_iter=k / 2,
+                        copies_per_iter=c / 2, syncs_flagged_per_iter=(
+                            flagged / 2), chi2_before=c0, chi2_after=c1))
+                row = {r["route"]: r for r in rows[-2:]}
+                s_t, s_p, s_c = self.step_diff(first["implicit"],
+                                               first["dense"], args)
+                check(s_t <= ROUTE_STEP_REL and s_p <= ROUTE_STEP_REL,
+                      f"{flavor} {n} KFs implicit vs dense on CUDA, first "
+                      f"step: KF positions {s_t}, points {s_p} of the "
+                      f"step; chi2 {s_c}")
+                d_t, d_p, d_c = self.route_diff(held["implicit"],
+                                                held["dense"], gauge)
+                if n in LARGE_CPU_KFS:
+                    check(d_c <= ROUTE_CHI2_REL and d_t <= EST_FIBA_M
+                          and d_p <= EST_FIBA_M,
+                          f"{flavor} {n} KFs implicit vs dense on CUDA: KF "
+                          f"positions {d_t} m, median point {d_p} m, chi2 "
+                          f"{d_c}")
+                row["implicit"].update(
+                    step_vs_dense_t_rel=s_t, step_vs_dense_point_rel=s_p,
+                    step_vs_dense_chi2_rel=s_c, vs_dense_t_m=d_t,
+                    vs_dense_point_m=d_p, vs_dense_chi2_rel=d_c)
+                if n in LARGE_CPU_KFS:
+                    # the route the entry points take at this size
+                    route = "implicit" if n >= ba.IMPLICIT_MIN_KF else "dense"
+                    cres = solve_ba(*self.solve_args(problem, "cpu"), opts,
+                                    implicit=route == "implicit")
+                    e_t, e_p, e_c = self.route_diff(held[route], cres, gauge)
+                    check(e_c <= (EST_CHI2_REL if gauge
+                                  else EST_FIBA_CHI2_REL)
+                          and e_t <= EST_FIBA_M and e_p <= EST_FIBA_M,
+                          f"{flavor} {n} KFs {route} cuda vs cpu: KF "
+                          f"positions {e_t} m, median point {e_p} m, chi2 "
+                          f"{e_c}")
+                    row[route].update(vs_cpu_t_m=e_t, vs_cpu_point_m=e_p,
+                                      vs_cpu_chi2_rel=e_c)
+                if n == MESH_KFS:
+                    keep[flavor] = (problem, first, held)
+                    # how far the PCG(64) step is from the exact one
+                    with deterministic_sums():
+                        exact = solve_ba(*args, dataclasses.replace(
+                            opts, iters=1, pose_cg_iters=0))
+                    row["dense"]["step_vs_cholesky_t_rel"], row["dense"][
+                        "step_vs_cholesky_point_rel"], _ = self.step_diff(
+                            first["dense"], exact, args)
+                for route in ("dense", "implicit"):
+                    r = row[route]
+                    say(f"  (a) {flavor} {n} KFs {route}: {r['n_mp']} "
+                        f"points, {r['n_obs']} obs, {r['iters']} iters, "
+                        f"{r['ms']:.1f} ms a call, {r['host_syncs']} host "
+                        f"syncs, peak {r['peak_mib']:.0f} MiB; an iteration "
+                        f"(2 profiled): {r['device_ms_per_iter']:.2f} device "
+                        f"ms, {r['kernels_per_iter']:.0f} kernels + "
+                        f"{r['copies_per_iter']:.0f} copies, "
+                        f"{r['syncs_flagged_per_iter']:.0f} syncs flagged; "
+                        f"chi2 {r['chi2_before']:.6g} -> "
+                        f"{r['chi2_after']:.6g}"
+                        + (f"; implicit vs dense: first step KF {s_t:.3g},"
+                           f" point {s_p:.3g} of the step, chi2 {s_c:.3g}; "
+                           f"after "
+                           f"{r['iters']} iters KF {d_t:.3g} m, point "
+                           f"{d_p:.3g} m, chi2 {d_c:.3g}" if route ==
+                           "implicit" else "")
+                        + (f"; PCG(64) first step against Cholesky's: KF "
+                           f"{r['step_vs_cholesky_t_rel']:.3g}, point "
+                           f"{r['step_vs_cholesky_point_rel']:.3g} of the "
+                           f"step" if "step_vs_cholesky_t_rel" in r else "")
+                        + (f"; vs cpu: KF {r['vs_cpu_t_m']:.3g} m, point "
+                           f"{r['vs_cpu_point_m']:.3g} m, chi2 "
+                           f"{r['vs_cpu_chi2_rel']:.3g}"
+                           if "vs_cpu_t_m" in r else "") + f" [{self.card}]")
+            # the entry points' own route on this map
+            routes = {}
+            for flavor, call in (
+                    ("gba", lambda: ba.global_bundle_adjustment(wmap)),
+                    ("fiba", lambda: ba.full_inertial_ba(wmap))):
+                profiler.reset()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                summary = call()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                cnt = profiler.counters
+                dev = self.dev.type
+                n_impl = cnt.get(f"device.solve_ba_implicit.{dev}", 0)
+                n_all = cnt.get(f"device.solve_ba.{dev}", 0)
+                want = n >= ba.IMPLICIT_MIN_KF
+                check(n_all >= 1 and n_impl == (n_all if want else 0)
+                      and not [k for k in cnt if k.startswith("device.")
+                               and not k.endswith(f".{dev}")],
+                      f"{flavor} entry point at {n} KFs: routes {cnt}")
+                check(summary["final_chi2"] < summary["initial_chi2"],
+                      f"{flavor} entry point at {n} KFs: chi2 "
+                      f"{summary['initial_chi2']} -> "
+                      f"{summary['final_chi2']}")
+                routes[flavor] = (f"{'implicit' if want else 'dense'} "
+                                  f"({n_impl}/{n_all} solves), "
+                                  f"{ms:.0f} ms")
+                rows.append(dict(flavor=flavor, n_kf=n, route="entry",
+                                 implicit_solves=n_impl, solves=n_all,
+                                 ms=ms, iters=summary["iters_run"]))
+            say(f"  (a) {n} KFs entry points: global BA {routes['gba']}, "
+                f"full inertial BA {routes['fiba']}; size in "
+                f"{time.time() - t_size:.1f} s [{self.card}]")
+        return dict(rows=rows, keep=keep)
+
+    def mesh_paths(self, large):
+        """Phase 12 (b); returns its summary."""
+        import dataclasses
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from ppg_slam_tpu_torch.estimator import ba
+        from ppg_slam_tpu_torch.estimator.ba_core import BAOptions, solve_ba
+        from ppg_slam_tpu_torch.parallel import (Mesh, dryrun_sharded_ba_step,
+                                                 make_vi_problem,
+                                                 solve_ba_sharded)
+        from ppg_slam_tpu_torch.utils import profiler
+        from ppg_slam_tpu_torch.worldmap import load_map, save_map
+
+        # every comparison below runs with deterministic sums (see
+        # large_windows); the whole 128-KF sharded solves run, and are
+        # timed, without them
+        out = {}
+        meshes = {"cuda:0 x2": Mesh([self.dev, self.dev])}
+        if torch.cuda.device_count() >= 2:
+            meshes["cuda:0+cuda:1"] = Mesh(["cuda:0", "cuda:1"])
+        # make_vi_problem and the 128-KF window, both routes
+        cam, states, points, prob, kf_dof, mp_free = make_vi_problem(
+            **VI_5KF, device=self.dev)
+        eye = torch.eye(3, device=self.dev)
+        z3 = torch.zeros(3, device=self.dev)
+        vi_args = (states, points, prob, kf_dof, mp_free, eye, z3, cam)
+        for mname, mesh in meshes.items():
+            for route in ("dense", "implicit"):
+                implicit = route == "implicit"
+                opts = BAOptions(iters=6, lambda0=1e-2, tol=0.0,
+                                 pose_cg_iters=64)
+                profiler.reset()
+                with deterministic_sums():
+                    ref = solve_ba(*vi_args, opts, implicit=implicit)
+                    got = solve_ba_sharded(*vi_args, opts, mesh,
+                                           implicit=implicit)
+                check(profiler.counters.get(
+                    f"device.solve_ba_sharded.{self.dev.type}") == 1,
+                    f"make_vi_problem over {mname}: {profiler.counters}")
+                d_t, d_p, d_c = self.route_diff(got, ref, gauge=False)
+                d_p = float((got[1] - ref[1]).abs().max())
+                check(d_c <= VI_CHI2_REL and d_t <= VI_T_M
+                      and d_p <= VI_POINT_M,
+                      f"make_vi_problem {route} over {mname} vs one device:"
+                      f" KF {d_t} m, points {d_p} m, chi2 {d_c}")
+                out[f"vi {route} {mname}"] = dict(t_m=d_t, point_max_m=d_p,
+                                                  chi2_rel=d_c)
+                for flavor, (problem, first, single) in large[
+                        "keep"].items():
+                    # held by the first LM step, as the routes are (phase
+                    # 12 (a)); the whole solve timed, its gap reported
+                    args = self.solve_args(problem, self.dev)
+                    gauge = flavor == "gba"
+                    with deterministic_sums():
+                        step = solve_ba_sharded(
+                            *args, dataclasses.replace(problem[4], iters=1),
+                            mesh, implicit=implicit)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    got = solve_ba_sharded(*args, problem[4], mesh,
+                                           implicit=implicit)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t1) * 1e3
+                    s_t, s_p, s_c = self.step_diff(step, first[route], args)
+                    check(s_t <= ROUTE_STEP_REL and s_p <= ROUTE_STEP_REL,
+                          f"{flavor} {MESH_KFS} KFs {route} over {mname} vs "
+                          f"one device, first step: KF {s_t}, point {s_p} of "
+                          f"the step; chi2 {s_c}")
+                    d_t, d_p, d_c = self.route_diff(got, single[route], gauge)
+                    out[f"{flavor}{MESH_KFS} {route} {mname}"] = dict(
+                        step_t_rel=s_t, step_point_rel=s_p, step_chi2_rel=s_c,
+                        t_m=d_t, point_m=d_p, chi2_rel=d_c, ms=ms,
+                        single_ms=next(
+                            r["ms"] for r in large["rows"]
+                            if (r["flavor"], r["n_kf"], r["route"])
+                            == (flavor, MESH_KFS, route)))
+            dryrun_sharded_ba_step(mesh)
+        for k, v in out.items():
+            say(f"  (b) {k}: " + ", ".join(f"{a} {b:.3g}"
+                                           for a, b in v.items())
+                + f" [{self.card}]")
+
+        # GBA and FIBA with mesh= on clones of phase 10's loop map
+        mesh = meshes["cuda:0 x2"]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "loop.ppgmap")
+            save_map(self.loop_map, path)
+            clones = [load_map(path, vocabulary=self.loop_voc)
+                      for _ in range(4)]
+        for name, fn in (("global_bundle_adjustment",
+                          ba.global_bundle_adjustment),
+                         ("full_inertial_ba", ba.full_inertial_ba)):
+            m_mesh, m_one = clones.pop(), clones.pop()
+            profiler.reset()
+            with deterministic_sums():
+                s_mesh = fn(m_mesh, mesh=mesh)
+                check(profiler.counters.get(
+                    f"device.solve_ba_sharded.{self.dev.type}", 0) >= 1,
+                    f"{name}(mesh=): {profiler.counters}")
+                s_one = fn(m_one)
+            cm = np.stack([k.camera_center() for k in sorted(
+                m_mesh.all_keyframes(), key=lambda k: k.mnId)])
+            co = np.stack([k.camera_center() for k in sorted(
+                m_one.all_keyframes(), key=lambda k: k.mnId)])
+            o, s = co[0], 1.0
+            if name == "global_bundle_adjustment":
+                s = float(np.median(np.linalg.norm(co[1:] - o, axis=1)
+                                    / np.linalg.norm(cm[1:] - o, axis=1)))
+            d_c = float(np.abs(s * (cm - o) - (co - o)).max())
+            d_x = abs(s_mesh["final_chi2"] - s_one["final_chi2"]) \
+                / s_one["final_chi2"]
+            check(d_c <= EST_FIBA_M and d_x <= ROUTE_CHI2_REL
+                  and s_mesh["final_chi2"] < s_mesh["initial_chi2"],
+                  f"{name}(mesh=) on the loop map vs no mesh: centres "
+                  f"{d_c} m, chi2 {d_x} ({s_mesh['initial_chi2']} -> "
+                  f"{s_mesh['final_chi2']})")
+            say(f"  (b) {name}(mesh=cuda:0 x2) on the loop map "
+                f"({s_mesh['n_kf']} KFs): centres {d_c:.3g} m, chi2 "
+                f"{d_x:.3g} from no mesh [{self.card}]")
+
+        # extract_batch over the mesh on phases 4-5's frames
+        ex = self.extractor_f32()
+        ref = ex.extract_batch(self.frames)
+        torch.cuda.synchronize()
+        self.reset_launches()
+        got = ex.extract_batch(self.frames, mesh=mesh)
+        torch.cuda.synchronize()
+        self.mesh_launches = self.read_launches(len(self.frames),
+                                                "extract_batch(mesh=)")
+        for k, (g, r) in enumerate(zip(got, ref)):
+            for key in ("kp_pos", "kp_pos_un", "kp_score", "kp_out", "edges",
+                        "edge_score", "colines", "desc"):
+                check(np.array_equal(getattr(g, key), getattr(r, key)),
+                      f"extract_batch(mesh=) frame {k}: {key} differs")
+        check(len(got) == len(ref) == len(self.frames),
+              "extract_batch(mesh=): frame count")
+        say(f"  (b) extract_batch(mesh=cuda:0 x2) of {len(self.frames)} "
+            f"frames bit-equal to extract_batch; launches "
+            f"{self.mesh_launches} [{self.card}]")
+        return (f"sharded solves within limits over {list(meshes)}"
+                + (" (one card: distinct cards not run)"
+                   if torch.cuda.device_count() < 2 else "")
+                + f", extract_batch bit-equal, launches {self.mesh_launches}")
+
     def kernel_table(self):
         rows = [self.sampler_rows[n] for n in MAIN_SIZES]
         table = [{
@@ -2194,6 +2696,7 @@ class Smoke:
             "launches": self.sys_launches["nearest_binary_packed"],
             "launches_frontend": self.launches["nearest_binary_packed"],
             "launches_cli": self.cli_launches["nearest_binary_packed"],
+            "launches_mesh": self.mesh_launches["nearest_binary_packed"],
             "on_main_path": False,
             "max_abs_err": self.max_abs_err,
             # one frame's four sampler calls at their former main-path sizes
@@ -2216,6 +2719,7 @@ class Smoke:
                 "launches": self.sys_launches[name],
                 "launches_frontend": self.launches[name],
                 "launches_cli": self.cli_launches[name],
+                "launches_mesh": self.mesh_launches[name],
                 "on_main_path": True,
                 "max_abs_err": self.fused_err[name],
                 "ms": row["ms"],
@@ -2245,7 +2749,8 @@ def main() -> int:
               smoke.phase3_kernel_parity, smoke.phase4_main_f32,
               smoke.phase5_serving, smoke.phase6_batch, smoke.phase7_tumvi,
               smoke.phase8_estimator, smoke.phase9_system,
-              smoke.phase10_loop_closing, smoke.phase11_cli]
+              smoke.phase10_loop_closing, smoke.phase11_cli,
+              smoke.phase12_large_and_mesh]
     for k, phase in enumerate(phases, 1):
         try:
             phase()

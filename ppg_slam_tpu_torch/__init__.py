@@ -4,7 +4,7 @@ A port of `ppg_slam_tpu` (the JAX reference) that keeps its module layout and
 names, so every module here has a counterpart of the same path there. It
 imports `torch` and never `jax` or `ppg_slam_tpu`.
 
-Package layout (ported so far):
+Package layout:
   geometry/   camera models (pinhole + radtan, Kannala-Brandt-8), SO(3),
               SE(3), two-view initialization
   models/     the PPG CNNs as one NCHW `nn.Module`, the TorchScript converter
@@ -25,6 +25,8 @@ Package layout (ported so far):
               no OpenCV)
   viz/        the headless viewer (numpy rasterizer)
   cli/        mono_inertial, evaluate, train_vocabulary, profile_frontend
+  parallel/   the single-controller device Mesh and the sharded BA
+              solver (extract_batch(mesh=) is the front-end's)
   utils/      profiling, trajectory evaluation
   testing.py  fixtures shared by the tests and chip_smoke.py
 

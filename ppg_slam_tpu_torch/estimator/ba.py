@@ -18,7 +18,11 @@ observation erasure, MapEdge re-validation, coline outlier culling).
     checks behind IMU initialization and scale refinement
 
 Problems are solved at their exact sizes: the reference's pow2 shape
-buckets, slot-major layout and mesh sharding are XLA/TPU workarounds.
+buckets and slot-major layout are XLA/TPU workarounds. Past 64 keyframes a
+solve whose pose system resolves to PCG takes solve_ba's implicit route
+(IMPLICIT_MIN_KF), as the reference's accelerator route does; the global
+entry points take `mesh=` (a parallel.Mesh) and then solve through
+parallel.solve_ba_sharded, the residual set sharded over its devices.
 
 The local and global BA entry points pass `pose_cg_iters` and `backtrack`
 through to BAOptions; None keeps the reference's backend defaults (PCG(64)
@@ -46,10 +50,18 @@ from .ba_core import (
     KFStates,
     _chi2_only,
     empty_problem,
+    resolve_pose_cg,
     solve_ba,
 )
 
 CHI2_MONO = 5.991
+
+# The fewest keyframes that take solve_ba's implicit route. The reference
+# pads the keyframe count of an accelerator solve to a power of two with a
+# floor of 16 (ba.py _bucket_nm, _kf_mp_floors) and goes implicit from the
+# 128 bucket (_implicit_min_n), i.e. from 65 keyframes, when the pose
+# solve is PCG (ba.py:250-262).
+IMPLICIT_MIN_KF = 65
 
 
 def _sqrt_info_psd(M: np.ndarray) -> np.ndarray:
@@ -88,9 +100,12 @@ def _fetch(*tensors) -> list:
 
 def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
                   mp_free, rig: Rig, opts: BAOptions, device,
-                  abort_check=None, chunk: int = 2):
+                  abort_check=None, chunk: int = 2, mesh=None):
     """solve_ba on `device` from host (numpy) states, points and problem.
-    The name is the reference's; nothing is padded here.
+    The name is the reference's; nothing is padded here. The pose system
+    is solved implicitly from IMPLICIT_MIN_KF keyframes on where it
+    resolves to PCG; with `mesh` the solve is solve_ba_sharded's (its
+    lead device is `device`).
 
     abort_check: polled between fixed-size chunks of the damped-GN loop,
     the reference's force-stop flag inside g2o (OptimizerLBA.cpp:112-113);
@@ -101,9 +116,17 @@ def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
     st = KFStates(*dev[:5])
     pts, dof, free, Rcb, tcb = dev[5:10]
     prob_d = BAProblem(*dev[10:])
+    implicit = (len(kf_dof) >= IMPLICIT_MIN_KF
+                and resolve_pose_cg(opts.pose_cg_iters, device) > 0)
 
     def _solve(s, p, o):
-        return solve_ba(s, p, prob_d, dof, free, Rcb, tcb, rig.cam, o)
+        if mesh is not None:
+            from ..parallel.sharded_ba import solve_ba_sharded
+
+            return solve_ba_sharded(s, p, prob_d, dof, free, Rcb, tcb,
+                                    rig.cam, o, mesh, implicit=implicit)
+        return solve_ba(s, p, prob_d, dof, free, Rcb, tcb, rig.cam, o,
+                        implicit=implicit)
 
     if abort_check is None or opts.iters <= chunk:
         with profiler.timer("ba.dispatch"):
@@ -507,14 +530,16 @@ def local_inertial_ba(kf: KeyFrame, wmap: Map, b_large: bool = False,
 def global_bundle_adjustment(wmap: Map, iters: int = 20, loop_kf: int = 0,
                              robust: bool = True, abort_check=None,
                              map_lock=None, device=None, pose_cg_iters=None,
-                             backtrack=None) -> Optional[dict]:
+                             backtrack=None, mesh=None) -> Optional[dict]:
     """Visual-only GBA (OptimizerGBA.cpp:24-289). map_lock (if given) guards
     the host gather/write phases so a background-thread GBA (the reference's
     RunGlobalBundleAdjustment thread, LoopClosing.cpp:1050) does not race
-    tracking; the device solve runs unlocked. Returns the solve's summary
-    (_summary; GBA erases no observation), or None where there was nothing
-    to solve."""
-    device = resolve_device(device)
+    tracking; the device solve runs unlocked. mesh (a parallel.Mesh, if
+    given) shards the solve's residual set over its devices; the solve then
+    runs on the mesh's lead device, whatever `device` says. Returns the
+    solve's summary (_summary; GBA erases no observation), or None where
+    there was nothing to solve."""
+    device = mesh.lead if mesh is not None else resolve_device(device)
     guard = map_lock if map_lock is not None else nullcontext()
     rig = wmap.rig
     with guard:
@@ -539,7 +564,7 @@ def global_bundle_adjustment(wmap: Map, iters: int = 20, loop_kf: int = 0,
                      pose_cg_iters=pose_cg_iters, backtrack=backtrack)
     st, pts, info = _padded_solve(states, points, prob, kf_dof,
                                   np.ones(len(mps), bool), rig, opts, device,
-                                  abort_check=abort_check)
+                                  abort_check=abort_check, mesh=mesh)
     R, t, v, bg, ba, pts_np, chi2s = _fetch(*st, pts, _chi2_pair(info))
     with guard:
         if loop_kf == 0:
@@ -724,14 +749,17 @@ def full_inertial_ba(wmap: Map, iters: int = 100, loop_kf: int = 0,
                      b_init: bool = False, prior_g: float = 1e2,
                      prior_a: float = 1e6, abort_check=None, map_lock=None,
                      conformal_shrink_cum: float = 1.0, device=None,
-                     backtrack=None) -> Optional[dict]:
+                     backtrack=None, mesh=None) -> Optional[dict]:
     """Visual-inertial global BA (OptimizerGBA.cpp:291-683). map_lock
-    guards the host gather/write phases (see global_bundle_adjustment).
+    guards the host gather/write phases; mesh shards the solves' residual
+    set over a parallel.Mesh, on its lead device (see
+    global_bundle_adjustment); the conformal line search runs on the lead.
 
     b_init: one shared bias (the random-walk links made rigid). Bias priors
     prior_g/prior_a hold the last keyframe. At <= 64 KFs the solve is the
     reference's exact reduced solve (pose_cg_iters=0) for the full `iters`;
-    beyond, 25 iterations at the device default. backtrack: None = the
+    beyond, 25 iterations at the device default (on CUDA the implicit
+    PCG, IMPLICIT_MIN_KF). backtrack: None = the
     device default (on for CUDA, off on the CPU); a comparison of two
     devices names it. Each solve is followed by the conformal line search
     (up to 3 rounds) and a re-solve from the rescaled state.
@@ -742,7 +770,7 @@ def full_inertial_ba(wmap: Map, iters: int = 100, loop_kf: int = 0,
     solve summary (_summary, chi2 from the first solve's start to the last
     solve's end, iterations and host syncs summed, `conformal_scales` the
     applied sigmas), or None where there was nothing to solve."""
-    device = resolve_device(device)
+    device = mesh.lead if mesh is not None else resolve_device(device)
     guard = map_lock if map_lock is not None else nullcontext()
     rig = wmap.rig
     with guard:
@@ -779,7 +807,7 @@ def full_inertial_ba(wmap: Map, iters: int = 100, loop_kf: int = 0,
     with profiler.timer("fiba.solve"):
         st, pts, info = _padded_solve(states, points, prob, kf_dof, free,
                                       rig, opts, device,
-                                      abort_check=abort_check)
+                                      abort_check=abort_check, mesh=mesh)
     initial = info["chi2_hist"][0]
     iters_run, syncs = info["iters_run"], [info["host_syncs"]]
     prob_d = _device_problem(prob, device)
@@ -805,7 +833,7 @@ def full_inertial_ba(wmap: Map, iters: int = 100, loop_kf: int = 0,
         with profiler.timer("fiba.solve"):
             st, pts, info = _padded_solve(st_np, pts_np, prob, kf_dof, free,
                                           rig, opts, device,
-                                          abort_check=abort_check)
+                                          abort_check=abort_check, mesh=mesh)
         iters_run += info["iters_run"]
         syncs[0] += info["host_syncs"]
 

@@ -20,14 +20,25 @@ Optimizer*.cpp):
     block diagonal of Hll; the reduced (15N x 15N) system is solved with a
     dense Cholesky, or block-Jacobi PCG; the landmark back-substitution runs
     PCG with the coline cross-blocks.
+  * implicit=True (the reference's `kfm=` path, for large windows) never
+    forms the landmark-pose block W (M, 3, N*6) or the reduced matrix: the
+    PCG applies S = Hpp - W^T Hll^-1 W observation by observation, in
+    O(obs) a matvec, from the per-observation blocks.
+  * mesh= (a parallel.Mesh) splits every residual family into equal
+    contiguous slices, one a mesh device: each slice is linearized, and
+    its chi2 and matvecs evaluated, on its own device; the sums meet on
+    the lead device (Mesh.psum), where the reduced solve, the PCG vectors
+    and the LM decisions run once. This is the reference's shard_map over
+    its "dp" axis.
 
 The reference's TPU workarounds are not ported: gathers are `t[idx]` and
 scatters `index_add_` (no one-hot MXU products), problems are not padded to
-shape buckets, and the slot-major layout, implicit Schur path and mesh
-sharding wait for the large-window and multi-GPU work (ROADMAP.md). The LM
-loop runs eagerly: each GN iteration reads one device scalar pair (the exit
-test), the backtracking branch one more, and the reduced-system PCG checks
-its exit every PCG_CHECK iterations; `info["host_syncs"]` counts them.
+shape buckets, and there is no slot-major or kf-major observation layout
+(the implicit matvecs gather and `index_add_` in the caller's row order).
+The LM loop runs eagerly: each GN iteration reads one device scalar pair
+(the exit test), the backtracking branch one more, and the reduced-system
+PCG checks its exit every PCG_CHECK iterations; `info["host_syncs"]` counts
+them.
 """
 
 from __future__ import annotations
@@ -482,7 +493,7 @@ def _prior_batch(states, prob, want_jac: bool):
 # ---------------------------------------------------------------------------
 
 def _compute_all(states: KFStates, points, prob: BAProblem, cam, Rcb, tcb,
-                 opts: BAOptions, kf_dof, mp_free):
+                 opts: BAOptions, kf_dof, mp_free, implicit: bool = False):
     """One linearization: whitened residuals, Jacobians, robust weights.
 
     Returns (total_chi2, Hpp (N15, N15), b_p (N15,), Hll (M,3,3),
@@ -490,7 +501,10 @@ def _compute_all(states: KFStates, points, prob: BAProblem, cam, Rcb, tcb,
     the 6 pose columns of each keyframe: reprojection is the only family
     that couples landmarks to keyframes, and it does not depend on velocity
     or bias. Hll_col holds the colines' landmark-diagonal blocks apart from
-    the visual Hll (the solver folds with their sum)."""
+    the visual Hll (the solver folds with their sum). With implicit, W is
+    never formed and its place holds the raw per-observation blocks Bw
+    (O, 3, 6), robust weight and free masks applied (the reference's
+    materialize_w=False)."""
     n = states.R.shape[0]
     m = points.shape[0]
     n15 = n * DOF
@@ -503,7 +517,8 @@ def _compute_all(states: KFStates, points, prob: BAProblem, cam, Rcb, tcb,
     Hll = points.new_zeros(m, 3, 3)
     Hll_col = points.new_zeros(m, 3, 3)
     b_l = points.new_zeros(m, 3)
-    W = points.new_zeros(m * n, 3, 6)
+    W = None if implicit else points.new_zeros(m * n, 3, 6)
+    Bw = points.new_zeros(0, 3, 6)
     chi2_sum = points.new_zeros(())
 
     dof_mask = kf_dof.to(dtype)   # (N, 15)
@@ -534,8 +549,13 @@ def _compute_all(states: KFStates, points, prob: BAProblem, cam, Rcb, tcb,
             0, r_kf, w[:, None] * _jtr(Jk, r))
         Hll.index_add_(0, r_mp, sw * _outer(Jx, Jx))
         b_l.index_add_(0, r_mp, w[:, None] * _jtr(Jx, r))
-        W.index_add_(0, r_mp * n + r_kf, sw * _outer(Jx, Jk))
-    W = W.reshape(m, n, 3, 6).permute(0, 2, 1, 3).reshape(m, 3, n * 6)
+        Bw = sw * _outer(Jx, Jk)                       # (O, 3, 6)
+        if not implicit:
+            W.index_add_(0, r_mp * n + r_kf, Bw)
+    if implicit:
+        W = Bw
+    else:
+        W = W.reshape(m, n, 3, 6).permute(0, 2, 1, 3).reshape(m, 3, n * 6)
 
     # ---- colines --------------------------------------------------------
     c_idx = prob.c_idx
@@ -691,10 +711,10 @@ def _chi2_only(states, points, prob, cam, Rcb, tcb, opts):
     return total
 
 
-def _pcg(S, rhs, iters: int, syncs: list):
-    """Jacobi-preconditioned CG on the damped SPD reduced system, up to
-    `iters` iterations, exit at 1e-6 relative residual."""
-    d_inv = 1.0 / torch.clamp(torch.diagonal(S), min=1e-12)
+def _pcg(S_mv, d_inv, rhs, iters: int, syncs: list):
+    """Jacobi-preconditioned CG on the damped SPD reduced system: the
+    operator `S_mv` (x -> S x), the preconditioner the inverse diagonal
+    `d_inv`; up to `iters` iterations, exit at 1e-6 relative residual."""
     x = torch.zeros_like(rhs)
     r = rhs
     z = r * d_inv
@@ -708,7 +728,7 @@ def _pcg(S, rhs, iters: int, syncs: list):
             if not bool(active):
                 break
         active = active & (torch.dot(r, r) > thresh)
-        Sp = S @ p
+        Sp = S_mv(p)
         alpha = rz / torch.clamp(torch.dot(p, Sp), min=1e-30)
         x_n = x + alpha * p
         r_n = r - alpha * Sp
@@ -721,9 +741,27 @@ def _pcg(S, rhs, iters: int, syncs: list):
     return x
 
 
+def _on(states: KFStates, device) -> KFStates:
+    return KFStates(*(x.to(device) for x in states))
+
+
+def split_problem(prob: BAProblem, n: int) -> list:
+    """`n` problems of equal contiguous slices of every residual family of
+    `prob`; each family's length must be a multiple of n
+    (parallel.pad_problem_for_mesh pads it so)."""
+    sizes = {name: getattr(prob, name).shape[0] for name in BAProblem._fields}
+    for name, size in sizes.items():
+        if size % n:
+            raise ValueError(f"split_problem: {name} has {size} rows, not a "
+                             f"multiple of {n} (pad_problem_for_mesh first)")
+    return [BAProblem(*(x[k * (x.shape[0] // n):(k + 1) * (x.shape[0] // n)]
+                        for x in prob)) for k in range(n)]
+
+
 def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
              kf_dof: torch.Tensor, mp_free: torch.Tensor, Rcb: torch.Tensor,
-             tcb: torch.Tensor, cam: CameraModel, opts: BAOptions):
+             tcb: torch.Tensor, cam: CameraModel, opts: BAOptions,
+             implicit: bool = False, mesh=None):
     """Damped-GN iterations on the tensors' device. Returns (states, points,
     info).
 
@@ -731,82 +769,114 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
     damping `lam` (chunked callers resume by passing it back as
     opts.lambda0, ba._padded_solve), iters_run, the final per-observation
     chi2 and depth for the callers' outlier classification, and host_syncs
-    (device scalars the host read)."""
-    profiler.count_device("solve_ba", points)
+    (device scalars the host read).
+
+    implicit: solve the reduced pose system matrix-free (module docstring);
+    the same system as the dense fold to round-off. It takes the PCG only:
+    with a pose solve that resolves to Cholesky it raises ValueError.
+    mesh: a parallel.Mesh whose lead device holds the tensors; every
+    residual family's length a multiple of mesh.size (solve_ba_sharded
+    pads them)."""
     n = states.R.shape[0]
     m = points.shape[0]
     n15 = n * DOF
     dtype, dev = points.dtype, points.device
+    pose_cg = resolve_pose_cg(opts.pose_cg_iters, dev)
+    if implicit and pose_cg <= 0:
+        raise ValueError("solve_ba(implicit=True) solves the reduced system "
+                         "by PCG only: there is no Cholesky on an implicit "
+                         "operator (pose_cg_iters resolved to 0)")
+    if mesh is not None and torch.device(dev) != mesh.lead:
+        raise ValueError(f"solve_ba(mesh=): the tensors are on {dev}, the "
+                         f"mesh's lead device is {mesh.lead}")
+    profiler.count_device("solve_ba", points)
+    if implicit:
+        profiler.count_device("solve_ba_implicit", points)
+    if mesh is not None:
+        profiler.count_device("solve_ba_sharded", points)
     prob = prob._replace(**{k: getattr(prob, k).long() for k in _INDEX_FIELDS})
     kf_dof = kf_dof.to(torch.bool)
-    pose_cg = resolve_pose_cg(opts.pose_cg_iters, dev)
     backtrack = resolve_backtrack(opts.backtrack, dev)
     dof_flat = kf_dof.reshape(-1)
+    mask_f = dof_flat.to(dtype)
     keep = dof_flat[:, None] & dof_flat[None, :]
     fixed_diag = torch.diag(torch.where(dof_flat, 0.0, 1.0).to(dtype))
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye_n = torch.eye(n15, dtype=dtype, device=dev)
     syncs = [0]
 
+    # the shards: one on the tensors' device without a mesh; the per-shard
+    # constants are copies on the shard's device (no copy on the lead's)
+    if mesh is None:
+        devs, probs = [dev], [prob]
+
+        def psum(parts):
+            return parts[0]
+    else:
+        devs = list(mesh.devices)
+        probs = [p.to(d) for p, d in zip(split_problem(prob, mesh.size),
+                                         devs)]
+        psum = mesh.psum
+    shards = [(d, p, Rcb.to(d), tcb.to(d), kf_dof.to(d), mp_free.to(d))
+              for d, p in zip(devs, probs)]
+
+    def pad15(x6):
+        """(N, 6) pose-column values -> (N15,) with zeros elsewhere."""
+        out = x6.new_zeros(n, DOF)
+        out[:, :6] = x6
+        return out.reshape(n15)
+
+    def chi2_at(st, pts):
+        return psum([_chi2_only(_on(st, d), pts.to(d), p, cam, R_, t_, opts)
+                     for d, p, R_, t_, _, _ in shards])
+
     def solve_iter(states_c, points_c, lam):
-        chi2, Hpp, b_p, Hll, Hll_col, b_l, W, (rc, Js, wc) = _compute_all(
-            states_c, points_c, prob, cam, Rcb, tcb, opts, kf_dof, mp_free)
+        outs = [_compute_all(_on(states_c, d), points_c.to(d), p, cam, R_,
+                             t_, opts, dof, free, implicit=implicit)
+                for d, p, R_, t_, dof, free in shards]
+        chi2, Hpp, b_p, Hll, Hll_col, b_l = (psum([o[k] for o in outs])
+                                             for k in range(6))
         # the landmark block: visual + coline diagonal + damping, folded in
         # the Schur complement; the coline cross blocks enter the
         # back-substitution PCG (the reference's structure, ba_core.py:940)
         Hll_r = Hll + Hll_col + (lam + 1e-8) * eye3[None]
         Hll_inv = _inv3x3(Hll_r)
-
-        # Schur: S = Hpp - W^T Hll^-1 W; rhs = b_p - W^T Hll^-1 b_l, the
-        # visual correction in the compact (N6) layout padded into 15-DOF.
-        # The fold cancels most of Hpp's camera stiffness, and a f32 fold
-        # left the first step 5x further from the f64 step than the
-        # reference's f32 step (1.9e-4 m vs 3.8e-5 m on make_vi_problem's
-        # 5-KF problem, CPU), so it accumulates in f64
-        W64 = W.double()
-        HinvW = torch.einsum("mij,mjp->mip", Hll_inv.double(), W64)
-        S6 = torch.einsum("mip,miq->pq", W64, HinvW).to(dtype).reshape(
-            n, 6, n, 6)
-        S6f = points.new_zeros(n, DOF, n, DOF)
-        S6f[:, :6, :, :6] = S6
-        S = Hpp - S6f.reshape(n15, n15)
-        r6 = torch.einsum("mip,mi->p", W, _mv(Hll_inv, b_l)).reshape(n, 6)
-        r6f = points.new_zeros(n, DOF)
-        r6f[:, :6] = r6
-        rhs = b_p - r6f.reshape(n15)
-
-        # damping + fixed-DOF handling
-        S = S + lam * eye_n
-        S = torch.where(keep, S, 0.0) + fixed_diag
-        if pose_cg > 0:
-            dx_p = -_pcg(S, rhs, pose_cg, syncs)
+        if implicit:
+            dx_p, W_x = implicit_pose_step(outs, Hpp, b_p, b_l, Hll_inv, lam)
         else:
-            L, info = torch.linalg.cholesky_ex(S)
-            sol = torch.cholesky_solve(rhs[:, None], L)[:, 0]
-            # a failed factorization gives NaN, as the reference's does:
-            # the step is then rejected and lambda grows
-            dx_p = torch.where(info == 0, -sol, torch.nan)
+            W = psum([o[6] for o in outs])
+            dx_p = dense_pose_step(W, Hpp, b_p, b_l, Hll_inv, lam)
+
+            def W_x(x6):
+                return torch.einsum("mip,p->mi", W, x6.reshape(n * 6))
         dx_p = torch.where(dof_flat, dx_p, 0.0)
 
         # back-substitute landmarks: A dx_l = -(b_l + W dx_p) with
         # A = blockdiag(Hll_r) + coline cross-blocks, PCG preconditioned by
         # the block-diagonal inverse
-        dx_p6 = dx_p.reshape(n, DOF)[:, :6].reshape(n * 6)
-        rhs_l = -(b_l + torch.einsum("mip,p->mi", W, dx_p6))
-        if rc is not None:
-            c_idx = prob.c_idx
-            Hab = {(a, b): wc[:, None, None] * _outer(Js[a], Js[b])
-                   for a in range(3) for b in range(3) if a != b}
+        rhs_l = -(b_l + W_x(dx_p.reshape(n, DOF)[:, :6]))
+        colines = []
+        for (d, p, *_), o in zip(shards, outs):
+            rc, Js, wc = o[7]
+            if rc is not None:
+                colines.append((d, p.c_idx, {
+                    (a, b): wc[:, None, None] * _outer(Js[a], Js[b])
+                    for a in range(3) for b in range(3) if a != b}))
 
         def A_mv(x):
             y = _mv(Hll_r, x)
-            if rc is None:
+            if not colines:
                 return y
-            xg = [x[c_idx[:, b]] for b in range(3)]
-            for a in range(3):
-                acc = sum(_mv(Hab[a, b], xg[b]) for b in range(3) if b != a)
-                y = y.index_add(0, c_idx[:, a], acc)
-            return y
+            parts = []
+            for d, c_idx, Hab in colines:
+                xd = x.to(d)
+                xg = [xd[c_idx[:, b]] for b in range(3)]
+                yc = xd.new_zeros(m, 3)
+                for a in range(3):
+                    yc.index_add_(0, c_idx[:, a], sum(
+                        _mv(Hab[a, b], xg[b]) for b in range(3) if b != a))
+                parts.append(yc)
+            return y + psum(parts)
 
         dx_l = _mv(Hll_inv, rhs_l)
         if opts.pcg_iters > 0:
@@ -829,8 +899,7 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
         new_points = points_c + dx_l
         if not opts.adapt:
             return new_states, new_points, lam, chi2, chi2
-        new_chi2 = _chi2_only(new_states, new_points, prob, cam, Rcb, tcb,
-                              opts)
+        new_chi2 = chi2_at(new_states, new_points)
         full_ok = new_chi2 < chi2
         cand = (new_states, new_points, new_chi2)
         if backtrack:
@@ -842,8 +911,7 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
                 for alpha in (0.25, 0.0625):
                     st_a = states_c.retract(alpha * dx)
                     pts_a = points_c + alpha * dx_l
-                    tries.append((st_a, pts_a, _chi2_only(
-                        st_a, pts_a, prob, cam, Rcb, tcb, opts)))
+                    tries.append((st_a, pts_a, chi2_at(st_a, pts_a)))
                 (st2, pts2, c2), (st3, pts3, c3) = tries
                 pick2 = c2 <= c3
                 cand = (st2.select(pick2, st3),
@@ -857,6 +925,83 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
         return (cand_states.select(accept, states_c),
                 torch.where(accept, cand_points, points_c), lam_n,
                 torch.where(accept, cand_chi2, chi2), chi2)
+
+    def dense_pose_step(W, Hpp, b_p, b_l, Hll_inv, lam):
+        # Schur: S = Hpp - W^T Hll^-1 W; rhs = b_p - W^T Hll^-1 b_l, the
+        # visual correction in the compact (N6) layout padded into 15-DOF.
+        # The fold cancels most of Hpp's camera stiffness, and a f32 fold
+        # left the first step 5x further from the f64 step than the
+        # reference's f32 step (1.9e-4 m vs 3.8e-5 m on make_vi_problem's
+        # 5-KF problem, CPU), so it accumulates in f64
+        W64 = W.double()
+        HinvW = torch.einsum("mij,mjp->mip", Hll_inv.double(), W64)
+        S6 = torch.einsum("mip,miq->pq", W64, HinvW).to(dtype).reshape(
+            n, 6, n, 6)
+        S6f = points.new_zeros(n, DOF, n, DOF)
+        S6f[:, :6, :, :6] = S6
+        S = Hpp - S6f.reshape(n15, n15)
+        r6 = torch.einsum("mip,mi->p", W, _mv(Hll_inv, b_l)).reshape(n, 6)
+        rhs = b_p - pad15(r6)
+
+        # damping + fixed-DOF handling
+        S = S + lam * eye_n
+        S = torch.where(keep, S, 0.0) + fixed_diag
+        if pose_cg > 0:
+            d_inv = 1.0 / torch.clamp(torch.diagonal(S), min=1e-12)
+            return -_pcg(lambda x: S @ x, d_inv, rhs, pose_cg, syncs)
+        L, info = torch.linalg.cholesky_ex(S)
+        sol = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+        # a failed factorization gives NaN, as the reference's does: the
+        # step is then rejected and lambda grows
+        return torch.where(info == 0, -sol, torch.nan)
+
+    def implicit_pose_step(outs, Hpp, b_p, b_l, Hll_inv, lam):
+        """The reduced pose solve without W or S (the reference's implicit
+        branch, ba_core.py:979-1040): W x and W^T t are applied observation
+        by observation from each shard's blocks Bw (O, 3, 6), gathered by
+        r_kf / r_mp and summed with index_add_; the operator carries the
+        dense path's damping and fixed-DOF rows. Returns (dx_p, W_x).
+
+        The matvecs run in f32, as the reference's do, although S x is the
+        small difference of Hpp x and W^T Hll^-1 W x: the first LM step
+        lies within 1e-2 of the step of the dense route, which folds S in
+        f64 (chip_smoke.py phase 12, 64-300 KFs; test_torch_implicit_schur
+        on the CPU)."""
+        blocks = [(d, p.r_kf, p.r_mp, o[6])
+                  for (d, p, *_), o in zip(shards, outs)]
+
+        def W_x(x6):
+            # (N, 6) -> (M, 3): the sum over a landmark's observations
+            return psum([x6.new_zeros(m, 3, device=d).index_add_(
+                0, r_mp, _mv(Bw, x6.to(d)[r_kf]))
+                for d, r_kf, r_mp, Bw in blocks])
+
+        def Wt_t(t):
+            # (M, 3) -> (N, 6): the sum over a keyframe's observations
+            return psum([t.new_zeros(n, 6, device=d).index_add_(
+                0, r_kf, _mv(Bw.transpose(1, 2), t.to(d)[r_mp]))
+                for d, r_kf, r_mp, Bw in blocks])
+
+        rhs = b_p - pad15(Wt_t(_mv(Hll_inv, b_l)))
+
+        def S_mv(x):
+            xm = x * mask_f
+            y = Hpp @ xm + lam * xm
+            t = _mv(Hll_inv, W_x(xm.reshape(n, DOF)[:, :6]))
+            y = y - pad15(Wt_t(t))
+            return y * mask_f + (1.0 - mask_f) * x
+
+        # diag(S) for the Jacobi preconditioner, observation by
+        # observation: diag(Hpp) + lam - sum_obs diag(Bw^T Hll^-1 Bw). This
+        # is the fold's diagonal only where no (landmark, keyframe) pair
+        # holds two observations, as the reference assumes (ba_core.py:1031)
+        parts = []
+        for d, r_kf, r_mp, Bw in blocks:
+            dg = (Bw * (Hll_inv.to(d)[r_mp] @ Bw)).sum(1)      # (O, 6)
+            parts.append(dg.new_zeros(n, 6).index_add_(0, r_kf, dg))
+        dS = torch.diagonal(Hpp) + lam - pad15(psum(parts))
+        d_inv = 1.0 / torch.clamp(torch.where(dof_flat, dS, 1.0), min=1e-12)
+        return -_pcg(S_mv, d_inv, rhs, pose_cg, syncs), W_x
 
     lam = torch.as_tensor(opts.lambda0, dtype=dtype, device=dev)
     last = torch.full((), torch.inf, dtype=dtype, device=dev)
@@ -879,10 +1024,16 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
     chi2_hist = torch.where(torch.arange(MAX_HIST, device=dev) < it, hist,
                             last)
 
-    # final per-observation chi2 + depth for outlier classification
-    r_f, obs_depth, _, _ = _reproj_batch(
-        cam, Rcb, tcb, st.R[prob.r_kf], st.t[prob.r_kf], pts[prob.r_mp],
-        prob.r_uv, want_jac=False)
+    # final per-observation chi2 + depth for outlier classification, each
+    # shard's rows in shard order
+    obs_chi2, obs_depth = [], []
+    for d, p, R_, t_, _, _ in shards:
+        st_d, pts_d = _on(st, d), pts.to(d)
+        r_f, depth, _, _ = _reproj_batch(
+            cam, R_, t_, st_d.R[p.r_kf], st_d.t[p.r_kf], pts_d[p.r_mp],
+            p.r_uv, want_jac=False)
+        obs_chi2.append(torch.sum(r_f * r_f, dim=1).to(dev))
+        obs_depth.append(depth.to(dev))
     return st, pts, dict(chi2_hist=chi2_hist, final_chi2=last, lam=lam,
-                         iters_run=it, obs_chi2=torch.sum(r_f * r_f, dim=1),
-                         obs_depth=obs_depth, host_syncs=syncs[0])
+                         iters_run=it, obs_chi2=torch.cat(obs_chi2),
+                         obs_depth=torch.cat(obs_depth), host_syncs=syncs[0])

@@ -23,12 +23,19 @@ device work of later frames can be queued before the host finish of this one.
 goes further: on CUDA it uploads through pinned memory and runs the frames'
 nets and decode on a stream the extractor owns, so they overlap the
 caller's work on its own stream; `result()` makes the caller's stream wait
-for them before it touches a device-resident output.
+for them before it touches a device-resident output. Given a
+parallel.Mesh, `extract_batch(mesh=)` and `extract_batch_async(mesh=)` pad
+the batch to a multiple of the mesh size by repeating its last frame and
+run one contiguous slice of it on each mesh device, through a copy of the
+nets on that device (the reference's data-parallel shard_map); the
+features come back in input order, the padding dropped.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -122,6 +129,29 @@ class _Handle:
         return feats[0] if self._single else feats
 
 
+class _MeshHandle:
+    """A batch in flight over a mesh: one _Handle a shard, in shard order;
+    `result()` gives the first `n` frames' features in input order."""
+
+    def __init__(self, handles: List[_Handle], n: int):
+        self._handles = handles
+        self._n = n
+
+    def result(self) -> List["FrameFeatures"]:
+        feats = []
+        for h in self._handles:
+            with _on_device(h._ex.device):
+                feats.extend(h.result())
+        return feats[:self._n]
+
+
+def _on_device(device):
+    """A context making `device` current where it is a CUDA device: the
+    fused kernels' launchers run on the current device."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else nullcontext()
+
+
 class PPGExtractor:
     """Per-camera front-end."""
 
@@ -149,6 +179,7 @@ class PPGExtractor:
         self.net = load_net(weights_path or DEFAULT_WEIGHTS, compute_dtype,
                             self.device)
         self._stream = None  # extract_batch_async's CUDA stream
+        self._replicas = {}  # mesh device -> this extractor on that device
         self._has_dist = any(abs(d) > 0 for d in camera.dist)
         self._mapx = self._mapy = None
         if self._has_dist:
@@ -250,26 +281,30 @@ class PPGExtractor:
     def extract(self, image_u8: np.ndarray) -> FrameFeatures:
         return self.extract_async(image_u8).result()
 
-    def extract_batch(self, images: Union[Sequence[np.ndarray], torch.Tensor]
-                      ) -> List[FrameFeatures]:
+    def extract_batch(self, images: Union[Sequence[np.ndarray], torch.Tensor],
+                      mesh=None) -> List[FrameFeatures]:
         """images: a list of (H, W) uint8 host frames, or a (B, H, W) uint8
         tensor (possibly already on the device). One upload and one host
-        synchronisation for the batch; nets and decode run per frame."""
+        synchronisation for the batch; nets and decode run per frame.
+        mesh: a parallel.Mesh to spread the batch over (module docstring);
+        the features equal those without a mesh on the same kind of
+        device."""
+        if mesh is not None:
+            return self._run_mesh(images, mesh).result()
         return self._run(images, single=False).result()
 
     def extract_batch_async(self, images: Sequence[np.ndarray],
-                            mesh=None) -> _Handle:
+                            mesh=None) -> Union[_Handle, _MeshHandle]:
         """extract_batch of (H, W) uint8 host frames without waiting: the
         handle's `result()` gives the list of FrameFeatures. On CUDA the
         batch runs on the extractor's own stream, after the work already
         queued on the caller's stream: the frames go up through pinned
         memory, and the nets, the decode (the fused kernels included) and
         the device-to-host copies queue there. The features are those
-        extract() gives, frame by frame."""
+        extract() gives, frame by frame. mesh: as in extract_batch, each
+        shard on its device's replica and stream."""
         if mesh is not None:
-            raise NotImplementedError(
-                "extract_batch_async(mesh=) needs the multi-GPU port, which "
-                "is not ported yet: ROADMAP.md §1 item 11.7")
+            return self._run_mesh(images, mesh)
         stack = torch.from_numpy(np.stack([np.asarray(i) for i in images]))
         if self.device.type != "cuda":
             return self._run(stack, single=False)
@@ -278,6 +313,44 @@ class PPGExtractor:
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
             return self._run(stack.pin_memory(), single=False)
+
+    def _replica(self, device) -> "PPGExtractor":
+        """This extractor on `device`: itself on its own device, else a
+        copy holding its own copy of the nets and remap tables there,
+        made once a device."""
+        from ..parallel.mesh import canonical_device
+
+        device = canonical_device(device)
+        if device == canonical_device(self.device):
+            return self
+        rep = self._replicas.get(device)
+        if rep is None:
+            rep = copy.copy(self)
+            rep.device = device
+            rep.net = copy.deepcopy(self.net).to(device)
+            if self._has_dist:
+                rep._mapx = self._mapx.to(device)
+                rep._mapy = self._mapy.to(device)
+            rep._stream = None
+            rep._replicas = {}
+            self._replicas[device] = rep
+        return rep
+
+    def _run_mesh(self, images, mesh) -> _MeshHandle:
+        """The batch padded to a multiple of mesh.size (the last frame
+        repeated), one contiguous slice a mesh device."""
+        frames = (images.cpu().numpy() if isinstance(images, torch.Tensor)
+                  else [np.asarray(i) for i in images])
+        n = len(frames)
+        frames = list(frames) + [frames[-1]] * ((-n) % mesh.size)
+        per = len(frames) // mesh.size
+        handles = []
+        for k, device in enumerate(mesh.devices):
+            rep = self._replica(device)
+            with _on_device(rep.device):
+                handles.append(rep.extract_batch_async(
+                    frames[k * per:(k + 1) * per]))
+        return _MeshHandle(handles, n)
 
     # -- host finish ------------------------------------------------------
     @torch.inference_mode()

@@ -10,7 +10,10 @@ tensors. `-fmad=false` keeps every float multiply and add separately
 rounded, as the plain versions' separate PyTorch ops are.
 
 Launchers take device pointers, sizes and a `cudaStream_t` (PyTorch's current
-stream) and return the `cudaGetLastError()` code of the launch.
+stream) and return the `cudaGetLastError()` code of the launch. Each library
+also exports `ppg_runtime_device()` (packed_mask.cuh), the device its own
+static CUDA runtime launches on, which `check_device` holds against the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -146,6 +149,17 @@ def get_library(name: str) -> ctypes.CDLL:
 def launcher(name: str):
     """The C launcher function of kernel `name`."""
     return getattr(get_library(name), SIGNATURES[name][0])
+
+
+def check_device(name: str, device) -> None:
+    """Raise unless kernel `name`'s library would launch on `device`, the
+    device of the tensors it is given: its statically linked CUDA runtime
+    must see the device PyTorch made current (torch.cuda.device)."""
+    got = get_library(name).ppg_runtime_device()
+    if got != device.index:
+        raise RuntimeError(
+            f"{name}: the kernel library launches on cuda:{got}, its tensors "
+            f"are on {device}; launch it inside torch.cuda.device({device})")
 
 
 def check_launch(name: str, code: int) -> None:

@@ -1,5 +1,6 @@
 // Device code shared by the kernels that sample the packed line mask
-// (nearest_binary_packed.cu, pair_probe.cu, line_validate.cu).
+// (nearest_binary_packed.cu, pair_probe.cu, line_validate.cu), and the
+// runtime-device query each of their libraries exports.
 //
 // `packed_bit` is the function of the TPU kernel
 // ppg_slam_tpu/ops/sampling.py _nearest_binary_packed_kernel (:104-122):
@@ -38,3 +39,12 @@ __device__ __forceinline__ int round_clip(float v, int lim) {
 }
 
 }  // namespace ppg
+
+// The device that this library's CUDA runtime launches on. Every kernel
+// library includes this header, and links its runtime statically, apart
+// from PyTorch's: the Python wrappers hold this against the device of the
+// tensors they pass before each launch (kernels/__init__.py check_device).
+extern "C" int ppg_runtime_device(void) {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
+}

@@ -166,6 +166,7 @@ def _pair_probe_launch(mask: torch.Tensor, h: int, w: int,
                cand_valid=torch.empty(CAND_CAP, dtype=torch.bool, device=dev),
                n_cand=torch.empty((), dtype=torch.int64, device=dev),
                saturated=torch.empty((), dtype=torch.bool, device=dev))
+    kernels.check_device("pair_probe", dev)
     code = kernels.launcher("pair_probe")(
         mask.data_ptr(), kp_un.data_ptr(), kp_ok.data_ptr(),
         scratch.data_ptr(), out["ci"].data_ptr(), out["cj"].data_ptr(),
@@ -351,6 +352,7 @@ def _line_validate_launch(mask, heat, kp_un, ci, cj, dist, cand_valid):
                overflow=torch.empty((), dtype=torch.bool, device=dev),
                rate=rate, score=score,
                index_error=torch.empty((), dtype=torch.bool, device=dev))
+    kernels.check_device("line_validate", dev)
     code = kernels.launcher("line_validate")(
         mask.data_ptr(), heat.data_ptr(), kp_un.data_ptr(), ci.data_ptr(),
         cj.data_ptr(), dist.data_ptr(), cand_valid.data_ptr(), seg.data_ptr(),

@@ -72,6 +72,7 @@ def nearest_binary_packed(packed: torch.Tensor, ys: torch.Tensor,
     if n == 0:
         return out
     h, w8 = packed.shape
+    kernels.check_device("nearest_binary_packed", packed.device)
     launch = kernels.launcher("nearest_binary_packed")
     code = launch(packed.data_ptr(), ys.data_ptr(), xs.data_ptr(),
                   out.data_ptr(), n, h, w8,

@@ -90,6 +90,8 @@ class SyntheticScene:
         pts.append(np.stack(line_pts))
         self.points = np.concatenate(pts).astype(np.float32)
         self.n = len(self.points)
+        self._segments = np.asarray(self.segments, np.int64).reshape(-1, 2)
+        self._triplets = np.asarray(self.triplets, np.int64).reshape(-1, 3)
         d = rng.randn(self.n, 256).astype(np.float32)
         self.descs = d / np.linalg.norm(d, axis=1, keepdims=True)
 
@@ -104,6 +106,15 @@ class SyntheticScene:
         Rcw = so3.exp(ang).astype(np.float32).T
         return Rcw, (-Rcw @ t_wc).astype(np.float32)
 
+    def visible(self, Rcw: np.ndarray, tcw: np.ndarray) -> np.ndarray:
+        """The ids render(Rcw, tcw) returns without noise or subset."""
+        Xc = self.points @ Rcw.T + tcw
+        ids = np.nonzero(Xc[:, 2] > 0.3)[0]
+        uv = self.cam.project_np(Xc[ids])
+        inb = ((uv[:, 0] >= 8) & (uv[:, 0] < self.cam.width - 8)
+               & (uv[:, 1] >= 8) & (uv[:, 1] < self.cam.height - 8))
+        return ids[inb]
+
     def render(self, Rcw: np.ndarray, tcw: np.ndarray, noise: float = 0.0,
                desc_noise: float = 0.0, subset=None) -> tuple:
         """Returns (FrameFeatures, visible_global_ids). subset: an optional
@@ -112,7 +123,8 @@ class SyntheticScene:
 
         Xc = self.points @ Rcw.T + tcw
         vis = Xc[:, 2] > 0.3
-        uv = self.cam.project_np(Xc)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            uv = self.cam.project_np(Xc)  # behind the camera: not visible
         if noise > 0:
             uv = uv + self.rng.randn(*uv.shape).astype(np.float32) * noise
         inb = ((uv[:, 0] >= 8) & (uv[:, 0] < self.cam.width - 8)
@@ -126,19 +138,14 @@ class SyntheticScene:
             descs += self.rng.randn(*descs.shape).astype(np.float32) \
                 * desc_noise
             descs /= np.linalg.norm(descs, axis=1, keepdims=True)
-        gid_to_local = {g: i for i, g in enumerate(ids)}
-        edges = [(gid_to_local[a], gid_to_local[b]) for a, b in self.segments
-                 if a in gid_to_local and b in gid_to_local]
-        edges_np = (np.asarray(edges, np.int32) if edges
-                    else np.zeros((0, 2), np.int32))
-        colines = [(gid_to_local[p], gid_to_local[a], gid_to_local[b])
-                   for p, a, b in self.triplets
-                   if p in gid_to_local and a in gid_to_local
-                   and b in gid_to_local]
-        col_np = (np.asarray(colines, np.int32) if colines
-                  else np.zeros((0, 3), np.int32))
+        local = np.full(self.n, -1, np.int64)
+        local[ids] = np.arange(len(ids))
+        seg = local[self._segments]
+        edges_np = seg[(seg >= 0).all(1)].astype(np.int32)
+        tri = local[self._triplets]
+        col_np = tri[(tri >= 0).all(1)].astype(np.int32)
         connected = [[] for _ in range(len(ids))]
-        for eid, (a, b) in enumerate(edges):
+        for eid, (a, b) in enumerate(edges_np.tolist()):
             connected[a].append(eid)
             connected[b].append(eid)
         feats = FrameFeatures(
@@ -895,19 +902,35 @@ class EurocWindow:
     past the last keyframe match `n_match` map points each, `n_outliers` of
     them displaced by 30 px, against map points `tracked_point_noise` m
     from the truth. Keypoints carry `noise_px` of pixel noise.
-    Everything is numpy, made from `seed`."""
+    Everything is numpy, made from `seed`.
+
+    long=True makes a window of a large map (a loop-closure GBA's, hundreds
+    of keyframes): the scene's box follows the trajectory (4-12 m ahead of
+    it, 6 m beside it), and each keyframe starts the runs of enough new
+    landmark groups among those it sees to observe ~`obs_per_kf` landmarks
+    however long the window; `n_points` then sets the scene's density. The
+    default keeps the 20-keyframe window's fixed box and its draws."""
 
     def __init__(self, seed=0, n_kf=20, kf_every=6, n_points=4200,
                  kp_per_kf=500, obs_per_kf=300, min_obs=3, kf_outliers=0.02,
                  n_match=500, n_outliers=25, noise_px=0.5,
-                 tracked_point_noise=0.003):
+                 tracked_point_noise=0.003, long=False):
         from .geometry import so3
 
         rng = np.random.RandomState(seed + 5)
-        scene = SyntheticScene(n_points=n_points, seed=seed, cam=EUROC_CAM,
-                               extent=((-4, 10), (-3, 5), (4, 12)))
-        self.seq = seq = SyntheticSequence(n_frames=n_kf * kf_every + 4,
-                                           seed=seed, scene=scene)
+        # the motion does not depend on the scene, which is set after it
+        self.seq = seq = SyntheticSequence(
+            n_frames=n_kf * kf_every + 4, seed=seed,
+            scene=SyntheticScene(n_points=6, seed=seed))
+        extent = ((-4, 10), (-3, 5), (4, 12))
+        if long:
+            # the body path (with identity extrinsics the camera's) boxed
+            path = np.stack([t for _, t in seq.frame_poses])
+            lo, hi = path.min(0), path.max(0)
+            extent = ((lo[0] - 6, hi[0] + 6), (-3, 5),
+                      (lo[2] + 4, hi[2] + 12))
+        seq.scene = scene = SyntheticScene(n_points=n_points, seed=seed,
+                                           cam=EUROC_CAM, extent=extent)
         self.kf_frames = frames = [k * kf_every for k in range(n_kf)]
         self.poses = [seq.frame_tcw(i) for i in frames]
         self.times = [seq.frame_times[i] for i in frames]
@@ -921,7 +944,21 @@ class EurocWindow:
         # where it is seen; the other keypoints of a keyframe are unmatched
         start = rng.randint(-4, n_kf, n_groups)
         length = rng.randint(3, 6, n_groups)
-        seen = [scene.render(R, t)[1] for R, t in self.poses]
+        seen = [scene.visible(R, t) for R, t in self.poses]
+        if long:
+            # keyframe k starts the runs of new groups it sees (1.5 points
+            # a group on average), enough for ~obs_per_kf with those active
+            size = np.bincount(group, minlength=n_groups)
+            start = np.full(n_groups, -n_kf - 10)
+            free = np.ones(n_groups, bool)
+            for k, ids in enumerate(seen):
+                active = (start <= k) & (k < start + length)
+                g_seen = np.unique(group[ids])
+                room = obs_per_kf - int(size[g_seen[active[g_seen]]].sum())
+                cand = g_seen[free[g_seen]]
+                new = rng.permutation(cand)[:max(room, 0) * 2 // 3]
+                start[new] = k
+                free[new] = False
         active, subsets = [], []
         for k, ids in enumerate(seen):
             act = ((start <= k) & (k < start + length))[group]
@@ -950,6 +987,7 @@ class EurocWindow:
             for key in ("kp_pos", "kp_pos_un"):
                 feats[key] = feats[key].copy()
                 feats[key][bad] += shift.astype(np.float32)
+        self.min_obs = min_obs
         self.links = imu_links(seq, self.times)
         self.vels = [seq.frame_vels[i] for i in frames]
         dRs, dts, dps = perturbation(n_kf, scene.n, noise_pose=0.01,
@@ -993,14 +1031,28 @@ class EurocWindow:
         self.n_landmarks = int(mapped.sum())
         self.n_obs = int(sum(k.sum() for k in self.keep))
 
-    def build(self, pkg, preintegrated=None):
+    def build(self, pkg, preintegrated=None, n_kf=None):
         """A fresh (map, keyframes, {gid: MapPoint}) of the window; the
         links are integrated anew unless `preintegrated` (one Preintegrated
-        a link) is given, which the keyframes then hold copies of."""
-        return build_map(pkg, self.poses, self.views, self.seq.scene.points,
-                         self.pert, self.times,
-                         (preintegrated or self.links, self.vels),
-                         keep=self.keep, colines=True)
+        a link) is given, which the keyframes then hold copies of. n_kf:
+        the map of the first n_kf keyframes only, without the points that
+        fewer than `min_obs` of them observe."""
+        n = len(self.poses) if n_kf is None else n_kf
+        keep = self.keep[:n]
+        if n < len(self.poses):
+            n_seen = np.zeros(self.seq.scene.n, int)
+            for (_, ids), kp in zip(self.views[:n], keep):
+                n_seen[ids[kp]] += 1
+            keep = [kp & (n_seen[ids] >= self.min_obs)
+                    for (_, ids), kp in zip(self.views[:n], keep)]
+        dRs, dts, dps = self.pert
+        return build_map(pkg, self.poses[:n], self.views[:n],
+                         self.seq.scene.points,
+                         (dRs[:max(n - 2, 0)], dts[:max(n - 2, 0)], dps),
+                         self.times[:n],
+                         ((preintegrated or self.links)[:n - 1],
+                          self.vels[:n]),
+                         keep=keep, colines=True)
 
     def frame_inputs(self, k, pad=512):
         """Tracking frame k's padded pose-optimization inputs (numpy): X,

@@ -393,7 +393,8 @@ def test_estimator_runs_without_jax(tmp_path):
     (loop closing included), matching, Sim3, pose-graph, map-checkpoint,
     BoW (vocabulary training included), two-view and evaluation modules,
     the user entry points (datasets, the CLIs, the prefetcher, the viewer,
-    the weight converter, ops/lines.py), round-trips a PNG and runs
+    the weight converter, ops/lines.py), the device mesh (parallel/),
+    round-trips a PNG and runs
     local_inertial_ba on the CPU on a small synthetic sequence map."""
     code = textwrap.dedent("""
         import sys
@@ -410,6 +411,7 @@ def test_estimator_runs_without_jax(tmp_path):
         import ppg_slam_tpu_torch.frontend.prefetch
         import ppg_slam_tpu_torch.models.convert_weights
         import ppg_slam_tpu_torch.ops.lines
+        import ppg_slam_tpu_torch.parallel
         import ppg_slam_tpu_torch.viz
         from ppg_slam_tpu_torch.datasets import (load_euroc, read_gray,
                                                  write_png)

@@ -176,3 +176,37 @@ def test_line_validate_indices_like_plain(cuda_device):
         with pytest.raises(IndexError):
             TP.line_validate(heat, kp, ci, cj_bad, dist, valid)
         assert TP.line_validate.launches == before + 1
+
+
+def test_extract_batch_on_a_two_shard_mesh(cuda_device):
+    """extract_batch(mesh=) over two shards of cuda:0 equals extract_batch
+    bit for bit, 3 frames padded to 4, and launches each fused kernel once
+    a frame (the padding frame included)."""
+    from ppg_slam_tpu_torch.frontend import PPGExtractor
+    from ppg_slam_tpu_torch.geometry.cameras import CAM_PINHOLE, CameraModel
+    from ppg_slam_tpu_torch.parallel import Mesh
+
+    cam = CameraModel(kind=CAM_PINHOLE, fx=300.0, fy=300.0, cx=376.0,
+                      cy=240.0, dist=(0.0, 0.0, 0.0, 0.0), width=752,
+                      height=480)
+    rng = np.random.RandomState(8)
+    base = np.full((480, 800), 110, np.int32)
+    for k in range(1, 20):
+        base[:, k * 37 % 800] = 230
+        base[k * 23 % 480, :] = 20
+    frames = [np.clip(base[:, 8 * i:8 * i + 752]
+                      + rng.randint(-12, 12, (480, 752)), 0, 255
+                      ).astype(np.uint8) for i in range(3)]
+    ex = PPGExtractor(cam, device=cuda_device)
+    ref = ex.extract_batch(frames)
+    before = (TP.pair_probe.launches, TP.line_validate.launches)
+    got = ex.extract_batch(frames, mesh=Mesh([cuda_device, cuda_device]))
+    assert (TP.pair_probe.launches - before[0],
+            TP.line_validate.launches - before[1]) == (4, 4)
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert g.n_kp == r.n_kp
+        for name in ("kp_pos_un", "kp_score", "edges", "edge_score",
+                     "colines", "desc"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(r, name),
+                                          err_msg=name)
