@@ -26,7 +26,7 @@ end to end on CUDA and held to tests/test_loop_closing.py's checks; Sim3
 exp/log, the Sim3 RANSAC, optimize_sim3 and both essential graphs, at the
 loop map's size and at 300 keyframes, on CUDA against CPU tensors, timed
 and profiled; the background GBA against the synchronous one; a map
-checkpoint round trip), then the user entry points (phase 11: 64 frames of
+checkpoint round trip), then the user entry points (phase 11: 80 frames of
 phase 9's corridor written as a EuRoC ASL folder through the port's PNG
 codec, run through cli.mono_inertial in the serving configuration with the
 frame prefetcher, the threaded GBA, renders, --eval-gt and --save-map, the
@@ -40,8 +40,18 @@ Schur matvecs, held to each other and at 64-66 keyframes to the CPU, timed,
 profiled and their peak memory read, the entry points' route read from the
 profiler's counters; solve_ba_sharded, the sharded dry run, GBA and FIBA
 with mesh= and extract_batch(mesh=) over two shards of the card, each held
-to the single-device call), and prints one line per phase. Every phase's
-failure is fatal.
+to the single-device call), then the Kannala-Brandt configurations (phase
+13: configs/tumvi.yaml at 512x512 through the tumvi CLI, its IMU
+initialization, --eval-gt and a --load-map run that relocalizes through the
+fisheye PnP; configs/uma.yaml at 1024x768 and 12 fps through the uma CLI
+with --no-loop-closing; configs/tumvi1024.yaml's 1024x1024 frames through
+the System, with the fused kernels held bit-equal to their plain versions
+and timed at the 1024x1024 and 1024x768 shapes; every camera block as
+shipped, on the corridor rendered through a wider pinhole canvas and
+resampled into the fisheye), and prints one line per phase. Phase 11's CLI
+runs configs/euroc.yaml's radtan camera as shipped, on the corridor
+resampled into the radtan images that camera takes. Every phase's failure
+is fatal.
 
 Output, in order: the card's name and power limit (nvidia-smi), the phase
 lines, one JSON line with the kernel table, and as the last line
@@ -140,17 +150,36 @@ SYS_DEVICE_CALLS = ("integrate", "two_view_reconstruct", "pose_optimization",
                     "solve_ba", "conformal_scan")
 
 # phase 11: the user entry points (the CLI) on the card
-CLI_FRAMES = 64           # the IMU init (~frame 40) + 24 steady frames
+# on the radtan frames the monocular init comes near frame 24 (frame 8 on
+# phase 9's pinhole renders: the distorted frames' grey corners), and the
+# first IMU init needs keyframes over 2 s (Tracking.min_init_window_s)
+CLI_FRAMES = 80           # the IMU init (~frame 66) + steady frames
 CLI_RENDER_EVERY = 10
 CLI_PREFETCH_FRAMES = 8   # (c) prefetch parity: 2 batches of 4
 CLI_RESUME_FRAMES = 12    # (d) the resumed stretch
 CLI_RESUME_KF_T = 1.0     # (d) it starts at the first keyframe from 1 s on
 CLI_RELOC_WITHIN = 3      # (d) tracking must be OK by its 3rd frame
 CLI_RELOC_M = 0.1         # (d) relocalized centre against the truth
-CLI_VOC_EVERY = 8         # (e) 8 of the 64 frames
+CLI_VOC_EVERY = 10        # (e) 8 of the 80 frames
 # (e) the tree: with 4 x 4 words every word is in all 8 frames, so every
 # IDF weight is ln(8/8) = 0 and a frame transforms to no word at all
 CLI_VOC_K, CLI_VOC_L = 10, 2
+
+# phase 13: the Kannala-Brandt configurations end to end (configs/tumvi.yaml,
+# uma.yaml, tumvi1024.yaml with their camera blocks as shipped), on the
+# corridor rendered through a wider pinhole canvas and resampled into the
+# fisheye (testing.fisheye_canvas / distort_frames)
+# The first IMU init needs keyframes over 2 s (Tracking.min_init_window_s):
+# (a) and (b) track past it; IMU.IniTime stays phase 9's SYS_IMU_INI_TIME
+FISH_REACH = 3.0          # m of wall beyond the corridor's, for the wide view
+FISH_SEED = 11
+# The CLI runs' frame counts are multiples of the prefetcher's batch of 4:
+# it pads a last short batch, and the padding launches the kernels too
+TUMVI_FRAMES = 48         # (a) 2.4 s at 20 fps: the IMU init + ~7 frames
+UMA_FRAMES = 52           # (b) 4.3 s at uma.yaml's 12 fps
+UMA_IMU_HZ = 250.0        # uma.yaml's IMU.Frequency
+T1024_FRAMES = 52         # (c) 2.6 s: the IMU init (~frame 43) + ~8 frames
+T1024_TRACKED = 10        # (c) frames that must track after the init
 
 # phase 10: loop closing on the card
 LOOP_FRAMES = 168         # testing.make_loop_sequence, as tests/ run it
@@ -520,11 +549,12 @@ class Smoke:
                        for name, *arrs in cases]
         return self._cases
 
-    def fused_parity(self):
-        """Both fused kernels against the plain version on every case:
-        bit-equal except lscore (and the internal score), held to
-        LSCORE_MAX_ULP. max_abs_err: the largest |kernel - plain| over
-        every compared output."""
+    def fused_parity(self, cases=None, tag="phase 3b"):
+        """Both fused kernels against the plain version on every case
+        (default: fused_cases()): bit-equal except lscore (and the internal
+        score), held to LSCORE_MAX_ULP. self.fused_err, the table's
+        max_abs_err: the largest |kernel - plain| over every compared
+        output of every call."""
         import torch
 
         from ppg_slam_tpu_torch.ops import pairs
@@ -534,9 +564,10 @@ class Smoke:
         def abs_err(a, b):
             return float((a.double() - b.double()).abs().max())
 
-        self.fused_err = {"pair_probe": 0.0, "line_validate": 0.0}
+        if not hasattr(self, "fused_err"):
+            self.fused_err = {"pair_probe": 0.0, "line_validate": 0.0}
         worst_ulp, flips, summary = 0, 0, []
-        for name, heat, kp, ok in self.fused_cases():
+        for name, heat, kp, ok in cases or self.fused_cases():
             ref = pairs.probe_and_select(heat, kp, ok, impl="plain")
             dist, _, _ = pairs.candidate_geometry(kp, ref["ci"], ref["cj"])
             mask_gt = pack_binary_mask(heat > pairs.LINE_HEATMAP_THRESH)
@@ -573,20 +604,21 @@ class Smoke:
                            f"{int(vref['good'].sum())}"
                            f"{' sat' if bool(ref['saturated']) else ''}"
                            f"{' overflow' if bool(vref['overflow']) else ''}")
-        say(f"phase 3b ok: pair_probe bit-equal and line_validate bit-equal "
+        say(f"{tag} ok: pair_probe bit-equal and line_validate bit-equal "
             f"(good, overflow, rate) with lscore within {worst_ulp} ulp "
             f"(bound {LSCORE_MAX_ULP}), {flips} near-threshold good flips, "
             f"max_abs_err {self.fused_err}, on {len(summary)} cases: "
             + "; ".join(summary))
 
-    def fused_timing(self):
-        """Each fused kernel at the main path's shapes (EuRoC frame 0): one
-        launch in a CUDA graph, host-clocked eager calls, the plain version
-        from the same packed mask, and the bound."""
+    def fused_timing(self, case=None):
+        """Each fused kernel at a case's shapes (default: the main path's,
+        EuRoC frame 0): one launch in a CUDA graph, host-clocked eager
+        calls, the plain version from the same packed mask, and the bound;
+        the rows, by kernel (the default's also in self.fused_rows)."""
         from ppg_slam_tpu_torch.ops import pairs
         from ppg_slam_tpu_torch.ops.sampling import pack_binary_mask
 
-        name, heat, kp, ok = self.fused_cases()[0]
+        name, heat, kp, ok = case or self.fused_cases()[0]
         h, w = heat.shape
         mask_ge = pack_binary_mask(heat >= pairs.LINE_HEATMAP_THRESH)
         mask_gt = pack_binary_mask(heat > pairs.LINE_HEATMAP_THRESH)
@@ -604,20 +636,24 @@ class Smoke:
                 lambda: pairs._validate_from_mask(mask_gt, *vargs),
                 validate_bound(mask_gt, heat, kp, vref)),
         }
-        self.fused_rows = {}
+        rows = {}
         for kname, (kernel, plain, (b_ms, b_by)) in runs.items():
             row = dict(ms=time_graph(kernel), eager_ms=time_cuda(kernel),
                        plain_ms=time_graph(plain),
                        eager_plain_ms=time_cuda(plain), bound_ms=b_ms,
-                       bound_by=b_by)
-            self.fused_rows[kname] = row
-            say(f"  {kname} ({name} 752x480, K {kp.shape[0]}, n_cand "
+                       bound_by=b_by, n_cand=int(sel["n_cand"]))
+            rows[kname] = row
+            say(f"  {kname} ({name} {w}x{h}, K {kp.shape[0]}, n_cand "
                 f"{int(sel['n_cand'])}): device {row['ms'] * 1e3:.2f} "
                 f"us/launch; plain {row['plain_ms'] * 1e3:.2f} us; eager "
                 f"issue {row['eager_ms'] * 1e3:.2f} us/call (plain "
                 f"{row['eager_plain_ms'] * 1e3:.2f} us); bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}) [{self.card}]")
-        say("phase 3 ok: kernels match their plain versions and are timed")
+        if case is None:
+            self.fused_rows = rows
+            say("phase 3 ok: kernels match their plain versions and are "
+                "timed")
+        return rows
 
     # ------------------------------------------------------------------
     def settings_camera(self, name):
@@ -1355,24 +1391,33 @@ class Smoke:
 
     # ------------------------------------------------------------------
     def system_settings(self, out_dir):
-        """configs/euroc.yaml with the distortion zeroed (the corridor is
-        rendered undistorted), the corridor IMU's noise densities and a
-        2 s IMU initialization time, written to out_dir; its path."""
+        """Phase 9's settings: configs/euroc.yaml with the distortion
+        zeroed (its corridor is rendered undistorted), the corridor IMU's
+        noise densities and a 2 s IMU initialization time; its path."""
+        return self.config_settings("euroc.yaml", out_dir, SYS_IMU_INI_TIME,
+                                    pinhole=True)
+
+    def config_settings(self, name, out_dir, ini_time, pinhole=False):
+        """configs/<name> with the rendered corridor's IMU noise densities
+        and IMU.IniTime = ini_time, its camera block as shipped (pinhole:
+        the radtan coefficients zeroed), written to out_dir; its path."""
         import re
 
         from ppg_slam_tpu_torch import testing
 
-        with open(os.path.join(ROOT, "configs", "euroc.yaml")) as f:
+        with open(os.path.join(ROOT, "configs", name)) as f:
             text = f.read()
-        for key, val in (("Camera.k1", 0.0), ("Camera.k2", 0.0),
-                         ("Camera.p1", 0.0), ("Camera.p2", 0.0),
-                         ("IMU.NoiseGyro", testing.CORRIDOR_NOISE_GYRO),
-                         ("IMU.NoiseAcc", testing.CORRIDOR_NOISE_ACC),
-                         ("IMU.IniTime", SYS_IMU_INI_TIME)):
+        edits = [("IMU.NoiseGyro", testing.CORRIDOR_NOISE_GYRO),
+                 ("IMU.NoiseAcc", testing.CORRIDOR_NOISE_ACC),
+                 ("IMU.IniTime", ini_time)]
+        if pinhole:
+            edits += [(k, 0.0) for k in ("Camera.k1", "Camera.k2",
+                                         "Camera.p1", "Camera.p2")]
+        for key, val in edits:
             text, n = re.subn(rf"^{re.escape(key)}:.*$", f"{key}: {val!r}",
                               text, flags=re.M)
-            check(n == 1, f"euroc.yaml has no single {key}")
-        path = os.path.join(out_dir, "euroc_corridor.yaml")
+            check(n == 1, f"{name} has no single {key}")
+        path = os.path.join(out_dir, name.replace(".yaml", "_corridor.yaml"))
         with open(path, "w") as f:
             f.write(text)
         return path
@@ -1961,24 +2006,28 @@ class Smoke:
 
     # ------------------------------------------------------------------
     def phase11_cli(self):
-        """The user entry points on the card. (a) the first CLI_FRAMES
-        frames of phase 9's corridor as a EuRoC ASL folder (PNGs written by
+        """The user entry points on the card, with configs/euroc.yaml's
+        camera as shipped (radtan). (a) the first CLI_FRAMES frames of
+        phase 9's corridor put through testing.distort_frames (the radtan
+        images EuRoC's camera takes) as a EuRoC ASL folder (PNGs written by
         datasets/png.py, the 200 Hz IMU, the body trajectory as truth);
         (b) `cli.mono_inertial.run` on it in the serving configuration
         with the prefetcher, the threaded GBA, renders, --eval-gt and
-        --save-map; (c) FramePrefetcher against extract() frame by frame,
-        bit-equal, in the serving and f32 configurations; (d) the CLI again
-        with --load-map on a stretch from one of (b)'s keyframes: it starts
-        LOST and relocalizes; (e) cli.train_vocabulary on 8 of the
-        frames."""
+        --save-map: every frame from the init on tracked; (c)
+        FramePrefetcher against extract() frame by frame, bit-equal, in the
+        serving and f32 configurations; (d) the CLI again with --load-map on
+        a stretch from one of (b)'s keyframes: it starts LOST and
+        relocalizes; (e) cli.train_vocabulary on 8 of the frames."""
         import tempfile
 
         t_phase = time.time()
         with tempfile.TemporaryDirectory() as tmp:
             folder, settings, gt = self.cli_data(tmp)
             run = self.cli_run(tmp, folder, settings, gt)
+            self.cli_launches = run["launches"]
             self.cli_prefetch_parity()
-            resume = self.cli_resume(tmp, settings, gt, run)
+            resume = self.cli_resume(tmp, settings, gt, run,
+                                     self.cli_corridor())
             self.cli_vocabulary(tmp, folder, settings)
         say(f"phase 11 ok: the CLI on the card: {run['summary']}; "
             f"{resume}; prefetch bit-equal; vocabulary CLI; in "
@@ -1996,90 +2045,127 @@ class Smoke:
                                                     seed=7, Tbc=tbc)
         return self.corridor
 
+    def cli_corridor(self):
+        """Phase 9's corridor as EuRoC's radtan camera takes it: the frames
+        through testing.distort_frames, the poses and the IMU as they
+        were."""
+        if not hasattr(self, "_cli_corridor"):
+            import types
+
+            from ppg_slam_tpu_torch import testing
+
+            corridor = self.sys_corridor()
+            cam = self.settings_camera("euroc.yaml")
+            check(not cam.is_fisheye and any(cam.dist),
+                  "euroc.yaml has no radtan distortion")
+            self._cli_corridor = types.SimpleNamespace(**vars(corridor))
+            self._cli_corridor.frames = testing.distort_frames(
+                corridor.frames, cam)
+        return self._cli_corridor
+
     def cli_data(self, tmp):
-        """(a) The ASL folder, phase 9's settings file and the truth."""
+        """(a) The ASL folder of the distorted corridor, euroc.yaml's
+        settings (its camera as shipped) and the truth."""
         from ppg_slam_tpu_torch import testing
 
         t0 = time.time()
-        corridor = self.sys_corridor()
+        corridor = self.cli_corridor()
         folder = os.path.join(tmp, "corridor")
         gt = testing.write_asl_folder(corridor, folder,
                                       frames=range(CLI_FRAMES))
-        settings = self.system_settings(tmp)
-        say(f"  (a) ASL folder: {CLI_FRAMES} PNGs of 752x480, "
-            f"{len(corridor.imu)} IMU rows, truth in TUM format, "
-            f"{time.time() - t0:.1f} s")
+        settings = self.config_settings("euroc.yaml", tmp, SYS_IMU_INI_TIME)
+        say(f"  (a) ASL folder: {CLI_FRAMES} PNGs of 752x480 (radtan, "
+            f"euroc.yaml's k1..p2), {len(corridor.imu)} IMU rows, truth in "
+            f"TUM format, {time.time() - t0:.1f} s")
         return folder, settings, gt
 
-    def cli_run(self, tmp, folder, settings, gt):
-        """(b) The README's run command, in-process, on the card."""
+    def cli_run(self, tmp, folder, settings, gt, kind="euroc",
+                voc="voc_euroc_9x3.npz", n_frames=CLI_FRAMES,
+                render_size=(500, 752), loop_closing=True, tag="(b)"):
+        """(b) The README's run command, in-process, on the card: the
+        `kind` CLI on `folder`, every frame from the init on tracked, the
+        IMU initialized, within SYS_ATE_M of the truth, the fused kernels
+        launched once a frame. render_size: the frame render's (rows,
+        cols), None for no renders."""
         import numpy as np
 
         from ppg_slam_tpu_torch.cli.mono_inertial import run
         from ppg_slam_tpu_torch.datasets import read_gray
         from ppg_slam_tpu_torch.pipeline import OK
 
-        out = os.path.join(tmp, "out")
-        renders = os.path.join(tmp, "renders")
+        out = os.path.join(tmp, f"out_{kind}")
+        renders = os.path.join(tmp, f"renders_{kind}")
         os.makedirs(out)
-        map_path = os.path.join(tmp, "corridor.ppgmap")
+        map_path = os.path.join(tmp, f"{kind}.ppgmap")
         self.reset_launches()
         t0 = time.time()
-        stats = run("euroc", os.path.join(ROOT, "assets",
-                                          "voc_euroc_9x3.npz"),
-                    settings, os.path.join(ROOT, "assets",
-                                           "ppg_weights.npz"),
+        stats = run(kind, os.path.join(ROOT, "assets", voc), settings,
+                    os.path.join(ROOT, "assets", "ppg_weights.npz"),
                     folder, out_dir=out, progress_every=0, serving=True,
                     async_frontend=True, threaded_gba=True,
-                    render_dir=renders, render_every=CLI_RENDER_EVERY,
-                    eval_gt=gt, save_map=map_path)
+                    render_dir=renders if render_size else "",
+                    render_every=CLI_RENDER_EVERY,
+                    loop_closing=loop_closing, eval_gt=gt,
+                    save_map=map_path)
         wall = time.time() - t0
-        self.cli_launches = self.read_launches(CLI_FRAMES, "the CLI run")
+        launches = self.read_launches(n_frames, f"the {kind} CLI run")
         stages = stats["stages"]
         counters = stages.get("counters", {})
-        check(stats["frames"] == CLI_FRAMES and stats["states"][-1] == OK,
-              f"CLI: {stats['frames']} frames, last state "
-              f"{stats['states'][-1:]}, state events "
-              f"{stats['state_events']}")
+        states = stats["states"]
+        check(stats["frames"] == n_frames and states[-1] == OK,
+              f"CLI {kind}: {stats['frames']} frames, last state "
+              f"{states[-1:]}, state events {stats['state_events']}")
+        k_init = states.index(OK)
+        check(all(st == OK for st in states[k_init:]),
+              f"CLI {kind}: a frame after the init ({k_init}) not tracked: "
+              f"states {states}")
         check(stages.get("tracking.imu_init", {}).get("count", 0) >= 1,
-              "CLI: the IMU never initialized")
+              f"CLI {kind}: the IMU never initialized (init frame "
+              f"{k_init}, {stats['keyframes']} KFs, events "
+              f"{stats['state_events']})")
         check(stats["device"].startswith("cuda"), f"CLI ran on "
                                                   f"{stats['device']}")
         off_card = {k: v for k, v in counters.items()
                     if k.startswith("device.") and not k.endswith(".cuda")}
-        check(not off_card, f"CLI: calls off the card: {off_card}")
-        for name, min_rows in (("CameraTrajectory.txt", CLI_FRAMES // 2),
+        check(not off_card, f"CLI {kind}: calls off the card: {off_card}")
+        for name, min_rows in (("CameraTrajectory.txt", n_frames // 2),
                                ("KeyFrameTrajectory.txt", 5)):
             rows = np.loadtxt(os.path.join(out, name), ndmin=2)
             check(rows.shape[1] == 8 and len(rows) >= min_rows
                   and np.isfinite(rows).all(),
-                  f"CLI: {name} has {rows.shape} rows, not TUM")
+                  f"CLI {kind}: {name} has {rows.shape} rows, not TUM")
         check(np.isfinite(stats["ate_rmse"])
               and stats["ate_rmse"] < SYS_ATE_M,
-              f"CLI: ATE {stats['ate_rmse']} m (limit {SYS_ATE_M})")
-        pngs = sorted(os.listdir(renders))
-        n_r = CLI_FRAMES // CLI_RENDER_EVERY
-        check(len(pngs) == 2 * n_r, f"CLI: renders {pngs}")
-        for name in pngs:
-            img = read_gray(os.path.join(renders, name))
-            want = (768, 1024) if name.startswith("map_") else (500, 752)
-            check(img.shape == want, f"CLI: render {name} is {img.shape}")
+              f"CLI {kind}: ATE {stats['ate_rmse']} m (limit {SYS_ATE_M})")
+        if render_size:
+            pngs = sorted(os.listdir(renders))
+            n_r = n_frames // CLI_RENDER_EVERY
+            check(len(pngs) == 2 * n_r, f"CLI {kind}: renders {pngs}")
+            for name in pngs:
+                img = read_gray(os.path.join(renders, name))
+                want = ((768, 1024) if name.startswith("map_")
+                        else render_size)
+                check(img.shape == want,
+                      f"CLI {kind}: render {name} is {img.shape}")
         kf_t = np.loadtxt(os.path.join(out, "KeyFrameTrajectory.txt"),
                           ndmin=2)[:, 0]
         split = {k[len("tracking."):]: round(v["mean_ms"], 1)
                  for k, v in stages.items()
                  if k.startswith("tracking.") and isinstance(v, dict)}
-        decode = self.cli_decode_ms(tmp, folder)
-        say(f"  (b) CLI run (serving, prefetch, threaded GBA): "
-            f"{stats['frames']} frames in {wall:.1f} s, frame median "
-            f"{stats['median_ms']:.1f} ms, mean {stats['mean_ms']:.1f}, p95 "
-            f"{stats['p95_ms']:.1f}; {stats['keyframes']} KFs, "
-            f"{stats['map_points']} map points, ATE "
-            f"{stats['ate_rmse']:.4f} m; launches {self.cli_launches}; "
-            f"stage mean ms {split}; device {stats['device']}; "
-            f"png.read_gray of one frame: {decode} [{self.card}]")
-        return dict(map=map_path, out=out, kf_t=kf_t,
-                    summary=(f"{CLI_FRAMES} frames, median "
+        decode = (f"; png.read_gray of one frame: "
+                  f"{self.cli_decode_ms(tmp, folder)}" if kind == "euroc"
+                  else "")
+        say(f"  {tag} CLI {kind} run (serving, prefetch, threaded GBA"
+            f"{'' if loop_closing else ', --no-loop-closing'}): "
+            f"{stats['frames']} frames in {wall:.1f} s, init frame "
+            f"{k_init}, frame median {stats['median_ms']:.1f} ms, mean "
+            f"{stats['mean_ms']:.1f}, p95 {stats['p95_ms']:.1f}; "
+            f"{stats['keyframes']} KFs, {stats['map_points']} map points, "
+            f"ATE {stats['ate_rmse']:.4f} m; launches {launches}; stage mean "
+            f"ms {split}; device {stats['device']}{decode} [{self.card}]")
+        return dict(map=map_path, out=out, kf_t=kf_t, launches=launches,
+                    kind=kind, voc=voc, wall=wall, stats=stats,
+                    summary=(f"{n_frames} frames, median "
                              f"{stats['median_ms']:.1f} ms, ATE "
                              f"{stats['ate_rmse']:.4f} m"))
 
@@ -2118,7 +2204,7 @@ class Smoke:
         from ppg_slam_tpu_torch.frontend import PPGExtractor
         from ppg_slam_tpu_torch.frontend.prefetch import FramePrefetcher
 
-        frames = self.sys_corridor().frames[:CLI_PREFETCH_FRAMES]
+        frames = self.cli_corridor().frames[:CLI_PREFETCH_FRAMES]
         cam = self.settings_camera("euroc.yaml")
         for cfg in (dict(desc_transfer="device", compute_dtype="bf16"),
                     dict()):
@@ -2152,10 +2238,11 @@ class Smoke:
             f"descriptors on host and device; candidates, good, lscore), "
             f"serving and f32")
 
-    def cli_resume(self, tmp, settings, gt, run):
-        """(d) --load-map of (b)'s map on a stretch that starts at one of
-        its keyframes: tracking starts LOST, is OK within CLI_RELOC_WITHIN
-        frames, at a pose within CLI_RELOC_M of the truth."""
+    def cli_resume(self, tmp, settings, gt, run, corridor, tag="(d)"):
+        """(d) --load-map of (b)'s map on a stretch of `corridor` (the one
+        the run tracked) that starts at one of its keyframes: tracking
+        starts LOST, is OK within CLI_RELOC_WITHIN frames, at a pose within
+        CLI_RELOC_M of the truth."""
         import numpy as np
 
         from ppg_slam_tpu_torch import testing
@@ -2164,30 +2251,34 @@ class Smoke:
         from ppg_slam_tpu_torch.utils.evaluation import (associate,
                                                          load_tum, umeyama)
 
-        corridor = self.sys_corridor()
+        kind = run["kind"]
         t_kf = float(next(t for t in run["kf_t"]
                           if t >= 1.0 + CLI_RESUME_KF_T))  # stamps from 1 s
         k0 = int(round((t_kf - 1.0) * corridor.fps))
-        folder = os.path.join(tmp, "resume")
+        check(k0 + CLI_RESUME_FRAMES <= len(corridor.frames),
+              f"{tag} no {CLI_RESUME_FRAMES} rendered frames from frame {k0}")
+        folder = os.path.join(tmp, f"resume_{kind}")
         testing.write_asl_folder(corridor, folder,
                                  frames=range(k0, k0 + CLI_RESUME_FRAMES))
-        out = os.path.join(tmp, "out_resume")
+        out = os.path.join(tmp, f"out_resume_{kind}")
         os.makedirs(out)
+        self.reset_launches()
         t0 = time.time()
-        stats = cli("euroc", os.path.join(ROOT, "assets",
-                                          "voc_euroc_9x3.npz"),
+        stats = cli(kind, os.path.join(ROOT, "assets", run["voc"]),
                     settings, os.path.join(ROOT, "assets",
                                            "ppg_weights.npz"),
                     folder, out_dir=out, progress_every=0, serving=True,
                     async_frontend=True, threaded_gba=True,
                     load_map=run["map"])
         wall = time.time() - t0
+        launches = self.cli_resume_launches = self.read_launches(
+            CLI_RESUME_FRAMES, f"{tag} the resumed {kind} run")
         ev = stats["state_events"]
         check(ev and ev[0]["to_state"] == LOST and ev[0]["t"] is None,
-              f"(d) the resumed run did not start LOST: {ev}")
+              f"{tag} the resumed run did not start LOST: {ev}")
         states = stats["states"]
         check(OK in states[:CLI_RELOC_WITHIN],
-              f"(d) not relocalized within {CLI_RELOC_WITHIN} frames: "
+              f"{tag} not relocalized within {CLI_RELOC_WITHIN} frames: "
               f"states {states}, events {ev}")
         k_ok = states.index(OK)
         # the first run's Sim3 alignment to the truth, applied to the
@@ -2200,18 +2291,19 @@ class Smoke:
         j = int(np.argmin(np.abs(tg - tr[0])))
         err = float(np.linalg.norm(s * R @ pr[0] + t - pg[j]))
         check(abs(tg[j] - tr[0]) < 1e-3 and err < CLI_RELOC_M,
-              f"(d) relocalized {err:.4f} m from the truth (limit "
+              f"{tag} relocalized {err:.4f} m from the truth (limit "
               f"{CLI_RELOC_M})")
         counters = stats["stages"].get("counters", {})
         reloc = stats["stages"].get("tracking.relocalization", {})
-        say(f"  (d) resume: --load-map from KF at {t_kf:.2f} s (frame {k0}),"
+        say(f"  {tag} resume ({kind}): --load-map from KF at {t_kf:.2f} s "
+            f"(frame {k0}),"
             f" {len(states)} frames in {wall:.1f} s: started LOST, OK at "
             f"frame {k_ok} ({reloc.get('count', 0)} relocalization calls, "
             f"mean {reloc.get('mean_ms', float('nan')):.1f} ms), "
             f"relocalized centre {err:.4f} m from the truth; states "
             f"{states}; frame median {stats['median_ms']:.1f} ms; "
-            f"relocalizations {counters.get('relocalization_attempts')} "
-            f"[{self.card}]")
+            f"relocalizations {counters.get('relocalization_attempts')}; "
+            f"launches {launches} [{self.card}]")
         return f"resumed LOST, relocalized at frame {k_ok}, {err:.4f} m"
 
     def cli_vocabulary(self, tmp, folder, settings):
@@ -2230,7 +2322,7 @@ class Smoke:
         wall = time.time() - t0
         voc = Vocabulary.load(out)
         desc = self.extractor_f32().extract(
-            self.sys_corridor().frames[0]).descriptors
+            self.cli_corridor().frames[0]).descriptors
         bow, _ = voc.transform(desc)
         check(voc.k == CLI_VOC_K and voc.L == CLI_VOC_L
               and voc.n_words > CLI_VOC_K and bow,
@@ -2502,7 +2594,14 @@ class Smoke:
                            f"{r['vs_cpu_point_m']:.3g} m, chi2 "
                            f"{r['vs_cpu_chi2_rel']:.3g}"
                            if "vs_cpu_t_m" in r else "") + f" [{self.card}]")
-            # the entry points' own route on this map
+            # the entry points' own route on this map: global BA, then full
+            # inertial BA from its result, with CUDA's sums in a fixed order.
+            # With atomic sums the state global BA leaves varies from run to
+            # run, and from a rare such state the PCG(64) full inertial BA
+            # rejects every step up to the 16-rejection cap and ends where
+            # it began; the reference, from such a state, accepts a step
+            # only after 15 rejections (ROADMAP section 3). The fixed order
+            # makes the check below a property of the code, not of the run
             routes = {}
             for flavor, call in (
                     ("gba", lambda: ba.global_bundle_adjustment(wmap)),
@@ -2510,7 +2609,8 @@ class Smoke:
                 profiler.reset()
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                summary = call()
+                with deterministic_sums():
+                    summary = call()
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t1) * 1e3
                 cnt = profiler.counters
@@ -2684,6 +2784,166 @@ class Smoke:
                    if torch.cuda.device_count() < 2 else "")
                 + f", extract_batch bit-equal, launches {self.mesh_launches}")
 
+    def phase13_fisheye(self):
+        """The Kannala-Brandt configurations end to end on the card, each
+        camera block as shipped, on the corridor rendered through a wider
+        pinhole canvas and resampled into the fisheye. (a) the README's
+        `tumvi` command with configs/tumvi.yaml (512x512) on TUMVI_FRAMES
+        frames through the IMU init, --eval-gt, then --load-map on a
+        stretch from one of its keyframes: it starts LOST and relocalizes
+        through the fisheye PnP; (b) the `uma` command with
+        --no-loop-closing and configs/uma.yaml (1024x768, 12 fps, a 250 Hz
+        IMU) on UMA_FRAMES frames through the IMU init; (c)
+        configs/tumvi1024.yaml (1024x1024): pair_probe and line_validate
+        against their plain versions and timed at the 1024x1024 and
+        1024x768 shapes, then the System on T1024_FRAMES frames with the
+        stage split of its steady frames. The fused kernels launch once a
+        frame in every run."""
+        import tempfile
+
+        t_phase = time.time()
+        self.fish_launches = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            a = self.fisheye_cli(tmp, "tumvi", "tumvi.yaml", TUMVI_FRAMES,
+                                 20.0, 200.0, "(13a)", resume=True)
+            b = self.fisheye_cli(tmp, "uma", "uma.yaml", UMA_FRAMES, 12.0,
+                                 UMA_IMU_HZ, "(13b)")
+        c = self.fisheye_1024()
+        say(f"phase 13 ok: the Kannala-Brandt configurations on the card: "
+            f"tumvi 512x512 {a}; uma 1024x768 {b}; tumvi 1024x1024 {c}; in "
+            f"{time.time() - t_phase:.1f} s [{self.card}]")
+
+    def fisheye_corridor(self, config, n_frames, fps, imu_hz):
+        """configs/<config>'s camera and the corridor it takes: rendered
+        through testing.fisheye_canvas(cam) with the config's T_b_c1 and
+        resampled into the fisheye by testing.distort_frames."""
+        from ppg_slam_tpu_torch import testing
+        from ppg_slam_tpu_torch.pipeline.system import load_settings
+
+        cam = self.settings_camera(config)
+        check(cam.is_fisheye, f"{config} is not Kannala-Brandt")
+        canvas = testing.fisheye_canvas(cam)
+        t0 = time.time()
+        corridor = testing.render_corridor(
+            n_frames=n_frames, seed=FISH_SEED, cam=canvas,
+            Tbc=load_settings(os.path.join(ROOT, "configs", config))["Tbc"],
+            fps=fps, imu_hz=imu_hz, reach=FISH_REACH)
+        corridor.frames = testing.distort_frames(corridor.frames, cam,
+                                                 canvas=canvas)
+        say(f"  {config}: {n_frames} frames {cam.width}x{cam.height} KB8 "
+            f"from a {canvas.width}x{canvas.height} canvas (f "
+            f"{canvas.fx:.1f}), {len(corridor.imu)} IMU rows at "
+            f"{imu_hz:g} Hz, {fps:g} fps, in {time.time() - t0:.1f} s")
+        return cam, corridor
+
+    def fisheye_cli(self, tmp, kind, config, n_frames, fps, imu_hz, tag,
+                    resume=False):
+        """(13a), (13b): one fisheye configuration through the CLI (and,
+        with resume, the --load-map run); its summary."""
+        from ppg_slam_tpu_torch import testing
+
+        cam, corridor = self.fisheye_corridor(config, n_frames, fps, imu_hz)
+        if kind == "uma":
+            self.uma_frame = (cam, corridor.frames[8])
+        folder = os.path.join(tmp, kind)
+        writer = (testing.write_uma_folder if kind == "uma"
+                  else testing.write_asl_folder)
+        gt = writer(corridor, folder, frames=range(n_frames))
+        settings = self.config_settings(config, tmp, SYS_IMU_INI_TIME)
+        run = self.cli_run(tmp, folder, settings, gt, kind=kind,
+                           voc="voc_tum_9x3.npz", n_frames=n_frames,
+                           render_size=None, loop_closing=kind != "uma",
+                           tag=tag)
+        self.fish_launches[f"{kind}_cli"] = run["launches"]
+        summary = run["summary"]
+        if resume:
+            summary += "; " + self.cli_resume(tmp, settings, gt, run,
+                                              corridor, tag=tag)
+            self.fish_launches[f"{kind}_resume"] = self.cli_resume_launches
+        return summary
+
+    def fisheye_case(self, name, cam, frame):
+        """(name, heat, kp_un, kp_ok) of one frame on the card, as the f32
+        extractor decodes it."""
+        import torch
+
+        from ppg_slam_tpu_torch.frontend import PPGExtractor
+
+        ex = PPGExtractor(cam)
+        a = ex._device_outputs(frame)
+        return (name,) + tuple(torch.from_numpy(x).to(self.dev) for x in (
+            ex.device_heat(frame), a["kp_un"], a["kp_ok"]))
+
+    def fisheye_1024(self):
+        """(13c): the fused kernels at the 1024x1024 and 1024x768 shapes,
+        then configs/tumvi1024.yaml's System; its summary."""
+        import tempfile
+
+        from ppg_slam_tpu_torch.pipeline import OK, System
+        from ppg_slam_tpu_torch.utils import profiler
+
+        cam, corridor = self.fisheye_corridor("tumvi1024.yaml", T1024_FRAMES,
+                                              20.0, 200.0)
+        check((cam.width, cam.height) == (1024, 1024),
+              "tumvi1024.yaml is not 1024x1024")
+        cases = [self.fisheye_case("tumvi1024", cam, corridor.frames[8]),
+                 self.fisheye_case("uma", *self.uma_frame)]
+        self.fused_parity(cases, tag="  (13c) 1024x1024 and 1024x768")
+        self.fish_rows = {f"{int(c[1].shape[1])}x{int(c[1].shape[0])}":
+                          self.fused_timing(c) for c in cases}
+        voc = os.path.join(ROOT, "assets", "voc_tum_9x3.npz")
+        with tempfile.TemporaryDirectory() as d:
+            system = System(voc, self.config_settings(
+                "tumvi1024.yaml", d, SYS_IMU_INI_TIME),
+                desc_transfer="device", compute_dtype="bf16")
+            profiler.reset()
+            self.reset_launches()
+            t0 = time.time()
+            rows = self.drive_system(system, corridor, T1024_FRAMES)
+            wall = time.time() - t0
+            self.fish_launches["tumvi1024_system"] = self.read_launches(
+                T1024_FRAMES, "(13c) the 1024x1024 System")
+        states = [r["state"] for r in rows]
+        check(OK in states, f"(13c) no init: states {states}")
+        k_init = states.index(OK)
+        check(all(st == OK for st in states[k_init:])
+              and len(states) - k_init >= T1024_TRACKED,
+              f"(13c) not {T1024_TRACKED} tracked frames after the init "
+              f"({k_init}): states {states}")
+        k_imu = next((k for k, r in enumerate(rows) if r["imu"]), None)
+        # the pose-inertial frames after the IMU init, else the visual ones
+        inertial = k_imu is not None and len(rows) - k_imu > 4
+        first = k_imu + 2 if inertial else k_init + 2
+        steady = rows[first:] if inertial else rows[first:k_imu]
+        check(steady, f"(13c) no steady frame: states {states}")
+        split = {}
+        for name, keys in (("frame", None),
+                           ("extract", ("tracking.extract",)),
+                           ("preintegrate", ("tracking.preintegrate",)),
+                           ("match", ("tracking.match",)),
+                           ("pose", ("tracking.pose_opt",
+                                     "tracking.pose_inertial")),
+                           ("keyframe", ("tracking.keyframe",))):
+            vals = [r["ms"] if keys is None else
+                    sum(r["stages"].get(n, 0.0) for n in keys)
+                    for r in steady]
+            split[name] = statistics.median(vals) if vals else float("nan")
+            split[name + "_mean"] = (statistics.fmean(vals) if vals
+                                     else float("nan"))
+        self.fish_split = split
+        say(f"  (13c) System 1024x1024 (serving): {T1024_FRAMES} frames in "
+            f"{wall:.1f} s, init frame {k_init}, IMU init frame {k_imu}, "
+            f"{rows[-1]['n_kf']} KFs, {rows[-1]['n_mp']} map points; per "
+            f"steady frame ({len(steady)} frames from frame {first}, host "
+            f"ms, pose = {'pose-inertial' if inertial else 'pose'}"
+            f"): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + f"; launches {self.fish_launches['tumvi1024_system']} "
+            f"[{self.card}]")
+        return (f"kernels bit-equal at 1024x1024 and 1024x768, "
+                f"{len(states) - k_init} frames tracked from frame {k_init}, "
+                f"steady frame median {split['frame']:.1f} ms")
+
+    # ------------------------------------------------------------------
     def kernel_table(self):
         rows = [self.sampler_rows[n] for n in MAIN_SIZES]
         table = [{
@@ -2696,6 +2956,8 @@ class Smoke:
             "launches": self.sys_launches["nearest_binary_packed"],
             "launches_frontend": self.launches["nearest_binary_packed"],
             "launches_cli": self.cli_launches["nearest_binary_packed"],
+            "launches_fisheye": {run: got["nearest_binary_packed"] for run,
+                                 got in self.fish_launches.items()},
             "launches_mesh": self.mesh_launches["nearest_binary_packed"],
             "on_main_path": False,
             "max_abs_err": self.max_abs_err,
@@ -2720,6 +2982,8 @@ class Smoke:
                 "launches_frontend": self.launches[name],
                 "launches_cli": self.cli_launches[name],
                 "launches_mesh": self.mesh_launches[name],
+                "launches_fisheye": {run: got[name] for run, got in
+                                     self.fish_launches.items()},
                 "on_main_path": True,
                 "max_abs_err": self.fused_err[name],
                 "ms": row["ms"],
@@ -2728,6 +2992,9 @@ class Smoke:
                 "bound_by": row["bound_by"],
                 "library_ms": None,
                 "eager_ms": row["eager_ms"],
+                "shapes": {shape: {k: rows[name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+                    "n_cand")} for shape, rows in self.fish_rows.items()},
             })
         return {"kernels": table}
 
@@ -2750,7 +3017,7 @@ def main() -> int:
               smoke.phase5_serving, smoke.phase6_batch, smoke.phase7_tumvi,
               smoke.phase8_estimator, smoke.phase9_system,
               smoke.phase10_loop_closing, smoke.phase11_cli,
-              smoke.phase12_large_and_mesh]
+              smoke.phase12_large_and_mesh, smoke.phase13_fisheye]
     for k, phase in enumerate(phases, 1):
         try:
             phase()

@@ -50,7 +50,7 @@ from ..ops.heatmap import refine_heatmap
 from ..ops.nms import MAX_KEYPOINTS, nms_keypoints
 from ..ops.pairs import candidate_geometry, probe_and_select, validate_candidates
 from ..ops.sampling import remap_bilinear
-from .graph_build import finalize_graph
+from .graph_build import finalize_graph, remap_np
 
 MIN_KP_FOR_DESC = 10  # reference quirk: < 10 keypoints -> zero descriptors
 DESC_TRANSFERS = ("f32", "f16", "i8", "device", "none")
@@ -182,8 +182,10 @@ class PPGExtractor:
         self._replicas = {}  # mesh device -> this extractor on that device
         self._has_dist = any(abs(d) > 0 for d in camera.dist)
         self._mapx = self._mapy = None
+        self._remap_xy = None  # host copy of the map, for remap_heat_host
         if self._has_dist:
             rmap = camera.undistort_rectify_map()
+            self._remap_xy = np.ascontiguousarray(rmap)
             self._mapx = torch.from_numpy(
                 np.ascontiguousarray(rmap[..., 0])).to(self.device)
             self._mapy = torch.from_numpy(
@@ -271,6 +273,14 @@ class PPGExtractor:
             outs.append(out)
             descs.append(dd)
         return _Handle(self, outs, descs, single)
+
+    def warmup(self) -> None:
+        """Run one frame through the nets and the decode, so the first real
+        frame pays no one-off cost (cuDNN's algorithm choice, the kernels'
+        build; the reference warms its CUDA nets likewise,
+        PPGExtractor.cpp:98-107)."""
+        img = np.ones((self.camera.height, self.camera.width), np.uint8)
+        self.extract(img)
 
     # -- pipeline API ---------------------------------------------------
     def extract_async(self, image_u8: np.ndarray) -> _Handle:
@@ -360,6 +370,16 @@ class PPGExtractor:
         buf = quantize_desc_i8(desc_dev).cpu().numpy()
         return dequantize_desc_i8(buf, desc_dev.shape[0])[:n_kp]
 
+    @torch.inference_mode()
+    def fetch_desc_strided(self, desc_dev_batch: torch.Tensor,
+                           stride: int) -> np.ndarray:
+        """Quantized host fetch of every stride-th frame's descriptors from
+        a batched (B, MAX_KP, 256) device descriptor array: one
+        quantize_desc_i8 buffer a fetched frame, stacked, in one copy to
+        the host; (ceil(B / stride), MAX_KP * 258) uint8."""
+        sel = desc_dev_batch[::stride]
+        return torch.stack([quantize_desc_i8(d) for d in sel]).cpu().numpy()
+
     def _finish(self, a: Dict[str, np.ndarray], desc_dev=None) -> FrameFeatures:
         n_kp = int(a["n_kp"])
         n_cand = int(a["n_cand"])
@@ -414,3 +434,30 @@ class PPGExtractor:
         """Refined (+remapped) heat as the device decode computes it."""
         _, heat, _ = self._nets(self._images([image_u8]))
         return self._refined_heat(heat[0]).cpu().numpy()
+
+    def remap_heat_host(self, heat: np.ndarray) -> np.ndarray:
+        """The heat map's undistortion on the host: the native library's
+        ppg_remap, or its numpy spec (graph_build.remap_np) where the
+        library is unavailable; the extractor itself remaps on the device.
+        Identity for a camera without distortion."""
+        if self._remap_xy is None:
+            return heat
+        from ..native import get_lib
+
+        lib = get_lib()
+        if lib is None:
+            return remap_np(heat, self._remap_xy)
+        import ctypes
+
+        heat = np.ascontiguousarray(heat, np.float32)
+        h, w = heat.shape
+        out = np.empty_like(heat)
+        mapx = np.ascontiguousarray(self._remap_xy[..., 0])
+        mapy = np.ascontiguousarray(self._remap_xy[..., 1])
+        lib.ppg_remap(
+            heat.ctypes.data_as(ctypes.c_void_p),
+            mapx.ctypes.data_as(ctypes.c_void_p),
+            mapy.ctypes.data_as(ctypes.c_void_p),
+            ctypes.c_int(h), ctypes.c_int(w),
+            out.ctypes.data_as(ctypes.c_void_p))
+        return out

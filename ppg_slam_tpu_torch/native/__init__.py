@@ -67,3 +67,23 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 subprocess.SubprocessError):
             _lib = None
         return _lib
+
+
+def pair_geometry_native(kp_un):
+    """The (K, K) pair distance and angle matrices of (K, 2) undistorted
+    keypoints through the native library (std::atan2 in f32, bit-identical
+    to the reference's); None when the library is unavailable."""
+    import numpy as np
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    kp = np.ascontiguousarray(kp_un, np.float32)
+    k = len(kp)
+    dist = np.zeros((k, k), np.float32)
+    ang = np.zeros((k, k), np.float32)
+    lib.ppg_pair_geometry(
+        kp.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(k),
+        dist.ctypes.data_as(ctypes.c_void_p),
+        ang.ctypes.data_as(ctypes.c_void_p))
+    return dist, ang

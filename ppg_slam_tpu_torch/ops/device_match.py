@@ -114,10 +114,27 @@ def unpack_match(buf: np.ndarray, pair_cap: int = PAIR_CAP):
     return rows, kps, ds, int(n_pairs), int(n_over)
 
 
+def match_bytes(pair_cap: int = PAIR_CAP) -> int:
+    """The length of one frame's pack_match buffer."""
+    return pair_cap * 6 + 8
+
+
 def gated_match_packed(bank, bank_idx, frame_desc, kp_pos, kp_valid, rects,
                        k: int = MATCH_K, pair_cap: int = PAIR_CAP):
     out = gated_topk(bank, bank_idx, frame_desc, kp_pos, kp_valid, rects, k=k)
     return pack_match(*flatten_topk(*out, pair_cap=pair_cap))
+
+
+def gated_match_batch_packed(bank, bank_idx_b, frame_desc_b, kp_pos_b,
+                             kp_valid_b, rects_b, k: int = MATCH_K,
+                             pair_cap: int = PAIR_CAP) -> torch.Tensor:
+    """B frames against the shared bank (the serving/throughput shape):
+    gated_match_packed frame by frame over the leading axis of every other
+    argument; output (B, match_bytes(pair_cap)) uint8."""
+    return torch.stack([
+        gated_match_packed(bank, bi, fd, kp, kv, rc, k=k, pair_cap=pair_cap)
+        for bi, fd, kp, kv, rc in zip(bank_idx_b, frame_desc_b, kp_pos_b,
+                                      kp_valid_b, rects_b)])
 
 
 def bank_update(bank: torch.Tensor, slots: torch.Tensor,

@@ -79,3 +79,11 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
             + tap(y0i, x0i + 1) * fx * (1 - fy)
             + tap(y0i + 1, x0i) * (1 - fx) * fy
             + tap(y0i + 1, x0i + 1) * fx * fy)
+
+
+def remap_heatmap(heat: torch.Tensor, remap_xy: torch.Tensor) -> torch.Tensor:
+    """cv::remap(INTER_LINEAR) equivalent: remap_xy is the (H, W, 2) map of
+    source coordinates (the undistortion map,
+    CameraModel.undistort_rectify_map). The extractor runs the same
+    resampling as sampling.remap_bilinear."""
+    return bilinear_sample(heat, remap_xy[..., 0], remap_xy[..., 1])

@@ -17,8 +17,9 @@ from __future__ import annotations
 import torch
 
 from .heatmap import bilinear_sample
-from .pairs import INV_SAMPLE_GAP, LINE_HEATMAP_THRESH
+from .pairs import INV_SAMPLE_GAP, LINE_HEATMAP_THRESH, LINE_INLIER_RATE  # noqa: F401
 
+LINE_DISTTHRESH = 2.0  # px (PPGExtractor.cpp:50; the graph build's)
 MAX_SAMPLES = 128  # segNum is provably < 100 for all supported resolutions
 
 

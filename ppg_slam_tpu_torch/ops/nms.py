@@ -1,6 +1,7 @@
 """Exact greedy keypoint NMS (reference PPGExtractor.cpp:158-206).
 
-Port of ppg_slam_tpu/ops/nms.py `nms_keypoints`. The reference sorts all
+Port of ppg_slam_tpu/ops/nms.py `nms_keypoints` and its spec oracle
+`nms_keypoints_scan`. The reference sorts all
 above-threshold junction pixels by score and greedily accepts them,
 suppressing a (2r+1)^2 window around each accepted point, capped at 500.
 
@@ -15,12 +16,14 @@ order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 MAX_KEYPOINTS = 500  # JUNCTION_MAX_NUM (PPGExtractor.cpp:47)
 NMS_RADIUS = 4  # JUNCTION_NMS_RADIUS
 JUNCTION_THRESH = 1.0 / 128.0
+TOPK_CANDIDATES = 2048  # candidates nms_keypoints_scan visits
 _CHECK_EVERY = 4  # rounds between host checks for an empty candidate set
 
 
@@ -82,3 +85,43 @@ def nms_keypoints(junc_prob: torch.Tensor, thresh: float = JUNCTION_THRESH,
     xy = torch.where(valid[:, None], xy,
                      torch.full_like(xy, -(10 * (radius + 1))))
     return xy, kp_scores, valid
+
+
+def nms_keypoints_scan(junc_prob: torch.Tensor,
+                       thresh: float = JUNCTION_THRESH,
+                       max_kp: int = MAX_KEYPOINTS, radius: int = NMS_RADIUS,
+                       topk: int = TOPK_CANDIDATES):
+    """Greedy NMS as a sequential scan (the behavioural spec that
+    nms_keypoints must match): the `topk` highest pixels, by (score desc,
+    flat index asc), are visited in order; one at or above `thresh`, at
+    least `radius` from the border and outside the (2r+1)^2 window of every
+    keypoint accepted so far is accepted, up to `max_kp`. The scan runs on
+    the host; the outputs come back on the input's device.
+
+    Returns (xy, score, valid) as nms_keypoints does, in acceptance
+    order."""
+    h, w = junc_prob.shape
+    flat = junc_prob.reshape(-1)
+    scores, idx = torch.sort(flat, descending=True, stable=True)
+    scores = scores[:topk].cpu().numpy()
+    idx = idx[:topk].cpu().numpy()
+    ys, xs = idx // w, idx % w
+    cand_ok = ((scores >= thresh) & (xs >= radius) & (xs <= w - radius - 1)
+               & (ys >= radius) & (ys <= h - radius - 1))
+    pad = -(10 * (radius + 1))
+    sx = np.full(max_kp, pad, np.int64)
+    sy = np.full(max_kp, pad, np.int64)
+    kp_scores = np.zeros(max_kp, scores.dtype)
+    count = 0
+    for x, y, sc, ok in zip(xs, ys, scores, cand_ok):
+        if not ok or count >= max_kp:
+            continue
+        if ((np.abs(sx[:count] - x) <= radius)
+                & (np.abs(sy[:count] - y) <= radius)).any():
+            continue
+        sx[count], sy[count], kp_scores[count] = x, y, sc
+        count += 1
+    dev = junc_prob.device
+    xy = torch.from_numpy(np.stack([sx, sy], -1).astype(np.int32)).to(dev)
+    valid = torch.arange(max_kp, device=dev) < count
+    return xy, torch.from_numpy(kp_scores).to(dev), valid

@@ -458,7 +458,7 @@ class Tracking:
                 continue
             idxs = [i for i, mp in enumerate(matches) if mp is not None]
             Xw = np.stack([matches[i].pos for i in idxs])
-            uv = frame.kp_un[idxs]
+            uv = frame.kp[idxs]  # the camera model's pixels (see above)
             s = PnPSolver(Xw, uv, self.rig.cam, probability=0.99,
                           min_inliers=10, max_iterations=300, min_set=6,
                           epsilon=0.5, th2=5.991)
@@ -660,7 +660,9 @@ class Tracking:
             if frame.N > 50:
                 self.init_frame = frame
                 self.last_frame = frame
-                self.prev_matched = frame.kp_un.copy()
+                # the grid's pixels, as the matcher updates them (kp_un,
+                # the JAX package's, is another space on Kannala-Brandt)
+                self.prev_matched = frame.kp.copy()
                 self.preint_from_kf = self._preint(np.zeros(6))
                 frame.preint_kf = self.preint_from_kf
                 self.ready_to_init = True
@@ -817,12 +819,20 @@ class Tracking:
             return self._run_pose_optimization_impl(frame)
 
     def _run_pose_optimization_impl(self, frame: Frame) -> int:
+        # The observations of the pose solves (and of relocalization's PnP)
+        # are the keypoints in the pixels the camera model projects to,
+        # frame.kp: undistorted on the pinhole, distorted on Kannala-Brandt,
+        # whose project() applies the fisheye distortion, as the BA and the
+        # matcher's projections use them. The JAX package reads kp_un here,
+        # which on Kannala-Brandt holds a distorted projection against an
+        # undistorted pixel, so most matches there fail the chi2 test and
+        # tracking is lost after the init (tests/test_torch_distorted.py).
         matched = [(i, mp) for i, mp in enumerate(frame.map_points)
                    if mp is not None]
         if len(matched) < 3:
             return 0
         X = np.stack([mp.pos for _, mp in matched]).astype(np.float32)
-        uv = frame.kp_un[[i for i, _ in matched]].astype(np.float32)
+        uv = frame.kp[[i for i, _ in matched]].astype(np.float32)
         Rcw, tcw, X, uv = _upload([np.asarray(frame.Rcw, np.float32),
                                    np.asarray(frame.tcw, np.float32), X, uv],
                                   self.device)
@@ -855,7 +865,7 @@ class Tracking:
         close = np.zeros(n, bool)
         for k, (i, mp) in enumerate(matched):
             X[k] = mp.pos
-            uv[k] = frame.kp_un[i]
+            uv[k] = frame.kp[i]
             valid[k] = True
             close[k] = 0 < mp.track_depth < 10.0
 

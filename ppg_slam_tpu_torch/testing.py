@@ -404,19 +404,25 @@ def _draw_segment(img: np.ndarray, p: np.ndarray, q: np.ndarray,
 def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
                     cam=EUROC_CAM, Tbc=None,
                     noise_gyro: float = CORRIDOR_NOISE_GYRO,
-                    noise_acc: float = CORRIDOR_NOISE_ACC):
+                    noise_acc: float = CORRIDOR_NOISE_ACC,
+                    fps: float = 20.0, imu_hz: float = 200.0,
+                    reach: float = 0.0):
     """An irregular wireframe corridor seen by `cam` (bench.py's live
     corridor): randomized bars and rails on a wall at z = 4.2 m with a
     world-fixed two-scale texture warped into each frame by the plane's
     homography (bilinear), free segments in front of it, 2-px anti-aliased
-    lines and +-8 grey levels of noise. The body moves at `speed` m a frame
-    with sinusoidal excitation on all axes (accelerations in the world,
-    rates in the body), integrated at 200 Hz with the discrete model the
+    lines and +-8 grey levels of noise; `reach` m more wall on every side,
+    with rails and free segments as dense, for a wide field of view. The
+    body moves at `speed` m a frame with sinusoidal excitation on all axes
+    (accelerations in the world, rates in the body), integrated at imu_hz
+    with the discrete model the
     preintegration assumes; gravity is +y in the world (image down). The
     camera is mounted by Tbc (body-from-camera, 4x4; identity when None)
     and starts at the world origin. IMU rows (ax, ay, az, wx, wy, wz, t)
     carry white noise of the given densities; the poses are the clean
-    signal's. Everything is numpy, made from `seed`.
+    signal's. Frame k is at k / fps; the IMU ticks at imu_hz, and a frame
+    between two ticks gets the body state propagated from the tick before
+    it by the same model. Everything is numpy, made from `seed`.
 
     Returns a namespace: frames (uint8 images), times, cam_poses [(Rcw,
     tcw)], body_poses [(Rwb, twb)], body_vels, imu (M, 7), gravity (3,)."""
@@ -426,30 +432,33 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
 
     rng = np.random.RandomState(seed)
     segs, vals = [], []
-    x0, x1 = -3.0, max(5.0, speed * n_frames + 4.0)
+    x0, x1 = -3.0 - reach, max(5.0, speed * n_frames + 4.0) + reach
+    half = 1.8 + reach  # the bars' half height
     x = x0
     while x < x1:
         tilt = rng.uniform(-0.35, 0.35)
-        segs.append(((x, -1.8, 4.2), (x + tilt, 1.8, 4.2)))
+        segs.append(((x, -half, 4.2), (x + tilt, half, 4.2)))
         vals.append(int(rng.randint(170, 255)))
         x += rng.uniform(0.35, 0.95)
-    for y in np.linspace(-1.8, 1.8, 10):
+    for y in np.linspace(-half, half, 10):
         dy = rng.uniform(-0.15, 0.15)
         segs.append(((x0, y, 4.2), (x1, y + dy, 4.2)))
         vals.append(int(rng.randint(170, 255)))
     for xc in np.arange(x0 + 1, x1, 0.35):
-        p = np.array([xc, 0, 0]) + rng.uniform([-0.4, -1.5, 2.6],
-                                               [0.4, 1.5, 3.9])
-        q = p + rng.uniform([-1.0, -1.0, -0.3], [1.0, 1.0, 0.3])
-        segs.append((tuple(p), tuple(q)))
-        vals.append(int(rng.randint(170, 255)))
+        for _ in range(1 + int(reach)):  # as dense over the taller wall
+            p = np.array([xc, 0, 0]) + rng.uniform(
+                [-0.4, -1.5 - reach, 2.6 - 0.4 * reach],
+                [0.4, 1.5 + reach, 3.9])
+            q = p + rng.uniform([-1.0, -1.0, -0.3], [1.0, 1.0, 0.3])
+            segs.append((tuple(p), tuple(q)))
+            vals.append(int(rng.randint(170, 255)))
     seg_p = np.asarray([s[0] for s in segs], np.float64)
     seg_q = np.asarray([s[1] for s in segs], np.float64)
 
     # world-fixed wall texture on the plane z = 4.2
     s = 96.0  # texture px per meter
-    wx0, wy0 = x0 - 1.5, -2.4
-    tw, th = int((x1 + 1.5 - wx0) * s), int((2.4 - wy0) * s)
+    wx0, wy0 = x0 - 1.5, -2.4 - reach
+    tw, th = int((x1 + 1.5 - wx0) * s), int((-2 * wy0) * s)
     t1 = _resize_bilinear(rng.randint(0, 255, (th // 8, tw // 8)), th, tw)
     t2 = _resize_bilinear(rng.randint(0, 255, (th // 32, tw // 32)), th, tw)
     tex = np.clip(110.0 + (t1 - 127.0) * 0.18 + (t2 - 127.0) * 0.25, 0, 255)
@@ -459,9 +468,7 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
 
     Tbc = np.eye(4) if Tbc is None else np.asarray(Tbc, np.float64)
     Rbc, tbc = Tbc[:3, :3].astype(np.float32), Tbc[:3, 3].astype(np.float32)
-    fps, imu_hz = 20.0, 200.0
     dt = 1.0 / imu_hz
-    steps = int(round(imu_hz / fps))
     g = np.float32([0.0, 9.81, 0.0])
     bx, wx = 0.22, 4.0
     by, wy = 0.30, 3.4
@@ -487,8 +494,9 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
     body_vels = [vel.copy()]
     imu_rows = []
     kk = 0
-    for _ in range(n_frames - 1):
-        for _ in range(steps):
+    for k in range(1, n_frames):
+        t_frame = k / fps
+        while (kk + 1) * dt <= t_frame + 1e-9:
             tm = kk * dt
             a_w = accel_w(tm)
             w_b = gyro_b(tm)
@@ -500,8 +508,16 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
             vel = vel + a_w * dt
             Rwb = Rwb @ so3.exp(np.float32(w_b * dt)).astype(np.float32)
             kk += 1
-        body_poses.append((Rwb.copy(), twb.copy()))
-        body_vels.append(vel.copy())
+        tau = t_frame - kk * dt  # the frame falls tau after the last tick
+        if tau < 1e-9:
+            body_poses.append((Rwb.copy(), twb.copy()))
+            body_vels.append(vel.copy())
+        else:
+            a_w, w_b = accel_w(kk * dt), gyro_b(kk * dt)
+            body_poses.append((
+                Rwb @ so3.exp(np.float32(w_b * tau)).astype(np.float32),
+                twb + vel * tau + 0.5 * a_w * tau * tau))
+            body_vels.append(vel + a_w * tau)
 
     frames, cam_poses = [], []
     img_rng = np.random.RandomState(seed + 100)
@@ -535,24 +551,109 @@ def render_corridor(n_frames: int = 120, seed: int = 7, speed: float = 0.10,
         imu=np.stack(imu_rows).astype(np.float64), gravity=g, fps=fps)
 
 
-def write_asl_folder(corridor, root: str, t0_ns: int = 1_000_000_000,
+CORRIDOR_BORDER = 110.0  # the wall's grey: the renders' border value
+
+
+def fisheye_canvas(cam, max_theta: float = 1.2, max_half_width: float = 800.0):
+    """The pinhole camera whose render distort_frames resamples into the
+    Kannala-Brandt image `cam`: same optical axis, a field of view that
+    holds every ray of the image up to `max_theta` rad off the axis (rays
+    beyond it get the border grey), its focal length `cam`'s own or less,
+    so that the canvas is at most 2 * max_half_width px wide."""
+    from .geometry.cameras import CAM_PINHOLE, CameraModel
+
+    h, w = cam.height, cam.width
+    edge = np.concatenate([
+        np.stack([np.arange(w), np.zeros(w)], 1),
+        np.stack([np.arange(w), np.full(w, h - 1)], 1),
+        np.stack([np.zeros(h), np.arange(h)], 1),
+        np.stack([np.full(h, w - 1), np.arange(h)], 1)]).astype(np.float32)
+    b = cam.unproject_np(edge)
+    tan_max = np.tan(max_theta)
+    ex = float(np.minimum(np.abs(b[:, 0]), tan_max).max())
+    ey = float(np.minimum(np.abs(b[:, 1]), tan_max).max())
+    f = min(cam.fx, cam.fy, max_half_width / max(ex, ey))
+    cx, cy = np.ceil(f * ex) + 1.0, np.ceil(f * ey) + 1.0
+    return CameraModel(kind=CAM_PINHOLE, fx=f, fy=f, cx=cx, cy=cy,
+                       dist=(0.0, 0.0, 0.0, 0.0), width=int(2 * cx) + 1,
+                       height=int(2 * cy) + 1, fps=cam.fps)
+
+
+def distortion_source_map(cam, canvas=None, max_theta: float = 1.2):
+    """(H, W, 2) f32: for each pixel d of `cam`'s image, the point of the
+    clean render that d sees, NaN where it sees none. radtan (a pinhole
+    with distortion): the render shares `cam`'s K and d reads
+    cam.undistort_points(d), cv::undistortPoints' 5 compensation steps.
+    Kannala-Brandt: the render is the pinhole `canvas` and d reads the
+    canvas pixel of its ray, cam.unproject_np(d); rays more than
+    `max_theta` rad off the axis are NaN."""
+    h, w = cam.height, cam.width
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = np.stack([uu, vv], -1)
+    if not cam.is_fisheye:
+        if canvas is not None:
+            raise ValueError("a radtan camera reads a render of its own K")
+        return cam.undistort_points(torch.from_numpy(d)).numpy()
+    b = cam.unproject_np(d)
+    theta = np.arctan(np.hypot(b[..., 0], b[..., 1]))
+    src = np.stack([canvas.fx * b[..., 0] + canvas.cx,
+                    canvas.fy * b[..., 1] + canvas.cy], -1)
+    ok = np.isfinite(src).all(-1) & (theta <= max_theta)
+    return np.where(ok[..., None], src, np.nan).astype(np.float32)
+
+
+def distort_frames(frames, cam, canvas=None, max_theta: float = 1.2,
+                   border: float = CORRIDOR_BORDER):
+    """Clean renders resampled into the images `cam` takes (bench.py's
+    _distort_frames without cv2): pixel d of the result is the bilinear
+    sample of the render at distortion_source_map(cam, canvas)[d], so a
+    world point appears where the distorted camera images it (lines curve,
+    the fisheye edge compresses). radtan: `frames` are renders of `cam`'s
+    own K (canvas None). Kannala-Brandt: renders of `canvas`
+    (fisheye_canvas(cam)). Pixels that see no point of the render get
+    `border`. uint8 frames give uint8 (rounded), others float32."""
+    src = distortion_source_map(cam, canvas, max_theta)
+    ok = np.isfinite(src).all(-1)
+    x = np.where(ok, src[..., 0], -1.0)
+    y = np.where(ok, src[..., 1], -1.0)
+    out = []
+    for f in frames:
+        f = np.asarray(f)
+        v = _sample_bilinear(f.astype(np.float32), x, y, border=border)
+        out.append(np.clip(np.rint(v), 0, 255).astype(np.uint8)
+                   if f.dtype == np.uint8 else v.astype(np.float32))
+    return out
+
+
+def write_uma_folder(corridor, root: str, t0_ns: int = 1_000_000_000,
                      frames=None) -> str:
+    """write_asl_folder in the UMA-VI layout that datasets.load_uma reads
+    (try_uma.cpp): cam0/ and imu0/ at the sequence root, no mav0/.
+    Returns the ground-truth file's path."""
+    return write_asl_folder(corridor, root, t0_ns, frames, prefix="")
+
+
+def write_asl_folder(corridor, root: str, t0_ns: int = 1_000_000_000,
+                     frames=None, prefix: str = "mav0") -> str:
     """Write a rendered corridor (render_corridor's namespace) as a EuRoC
     ASL folder under `root`: mav0/cam0/data/<ns>.png (8-bit grey, through
     datasets/png.py) + mav0/cam0/data.csv, mav0/imu0/data.csv (t[ns], w,
     a) and the body trajectory in TUM format (gt_body.txt: the poses the
     CLI's CameraTrajectory.txt writes), with frame k at t0_ns + k / fps.
     frames: the frame indices to write (default all; the IMU is written
-    whole). Returns the ground-truth file's path."""
+    whole). prefix: the folder that holds cam0/ and imu0/ ("" for the
+    UMA-VI layout, write_uma_folder). Returns the ground-truth file's
+    path."""
     import os
 
     from .datasets.png import write_png
     from .geometry import so3
 
     idx = range(len(corridor.frames)) if frames is None else frames
-    data = os.path.join(root, "mav0", "cam0", "data")
+    seq = os.path.join(root, prefix)
+    data = os.path.join(seq, "cam0", "data")
     os.makedirs(data, exist_ok=True)
-    os.makedirs(os.path.join(root, "mav0", "imu0"), exist_ok=True)
+    os.makedirs(os.path.join(seq, "imu0"), exist_ok=True)
 
     def ns(t):
         return t0_ns + int(round(t * 1e9))
@@ -566,9 +667,9 @@ def write_asl_folder(corridor, root: str, t0_ns: int = 1_000_000_000,
         q = so3.matrix_to_quat(np.asarray(Rwb, np.float32))
         gt.append(f"{t * 1e-9:.9f} " + " ".join(
             f"{v:.9f}" for v in (*twb, *q)))
-    with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+    with open(os.path.join(seq, "cam0", "data.csv"), "w") as f:
         f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
-    with open(os.path.join(root, "mav0", "imu0", "data.csv"), "w") as f:
+    with open(os.path.join(seq, "imu0", "data.csv"), "w") as f:
         f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,a_RS_S_x,"
                 "a_RS_S_y,a_RS_S_z\n")
         for r in corridor.imu:

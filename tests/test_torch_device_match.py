@@ -121,3 +121,57 @@ def test_bank_update_matches_reference():
     got = T.bank_update(torch.from_numpy(bank.copy()), torch.from_numpy(slots),
                         torch.from_numpy(descs)).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("cap", [J.PAIR_CAP, 64, 384])
+def test_match_bytes_matches_reference(cap):
+    assert T.match_bytes(cap) == J.match_bytes(cap) == cap * 6 + 8
+    buf = T.gated_match_packed(*(torch.from_numpy(a) for a in _problem(3)),
+                               pair_cap=cap)
+    assert buf.numel() == T.match_bytes(min(cap, 48 * T.MATCH_K))
+
+
+def _batch(seeds, cap=128):
+    """B frames (bank slots, descriptors, keypoints, gates) from _problem
+    against the first seed's bank."""
+    frames = [_problem(s, cap=cap) for s in seeds]
+    bank = frames[0][0]
+    for f in frames:
+        assert _min_gap((bank,) + f[1:]) >= 2e-5
+    return bank, [np.stack([f[i] for f in frames]) for i in range(1, 6)]
+
+
+def test_gated_match_batch_packed_matches_frames_and_reference():
+    """B = 3 frames against one bank: each row of the batched buffer is
+    gated_match_packed of that frame, bit for bit, and holds the JAX
+    batched call's matches: the counters and the (row, keypoint) pairs
+    exactly, the f16 distances to one f16 step. The order of two matches
+    of one row may differ where their distances lie ~1e-4 apart: the
+    reference's jit-compiled program computes its bf16 distances to about
+    that (its standalone gated_topk, to 1e-6), and swaps such pairs."""
+    bank, stacked = _batch((1, 4, 7))
+    got = T.gated_match_batch_packed(torch.from_numpy(bank),
+                                     *(torch.from_numpy(a) for a in stacked))
+    assert got.dtype == torch.uint8 and got.shape == (3, T.match_bytes(384))
+    for b in range(3):
+        one = T.gated_match_packed(torch.from_numpy(bank),
+                                   *(torch.from_numpy(a[b]) for a in stacked))
+        assert torch.equal(got[b], one)
+    ref = np.asarray(J.gated_match_batch_packed(
+        jnp.asarray(bank), *(jnp.asarray(a) for a in stacked)))
+    assert ref.shape == tuple(got.shape)
+    for b in range(3):
+        rj = J.unpack_match(ref[b], 384)
+        rt = T.unpack_match(got[b].numpy(), 384)
+        assert rj[3] > 0 and rt[3:] == rj[3:]
+        oj = np.lexsort((rj[1], rj[0]))
+        ot = np.lexsort((rt[1], rt[0]))
+        for g, r in zip(rt[:3], rj[:3]):
+            g, r = g[ot], r[oj]
+            if g.dtype == np.float16:
+                np.testing.assert_allclose(g.astype(np.float32),
+                                           r.astype(np.float32), atol=1e-3,
+                                           rtol=0)
+            else:
+                np.testing.assert_array_equal(g, r)
+        assert (rt[0] == rj[0]).all()  # row order of the flat list
