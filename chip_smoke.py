@@ -26,7 +26,11 @@ end to end on CUDA and held to tests/test_loop_closing.py's checks; Sim3
 exp/log, the Sim3 RANSAC, optimize_sim3 and both essential graphs, at the
 loop map's size and at 300 keyframes, on CUDA against CPU tensors, timed
 and profiled; the background GBA against the synchronous one; a map
-checkpoint round trip), then the user entry points (phase 11: 80 frames of
+checkpoint round trip; the same loop, 8 frames past its closure, through
+configs/tumvi.yaml's Kannala-Brandt camera block as shipped, T_b_c1
+included, closed on the card with its loop GBAs' routes and device busy
+shares), then the user
+entry points (phase 11: 80 frames of
 phase 9's corridor written as a EuRoC ASL folder through the port's PNG
 codec, run through cli.mono_inertial in the serving configuration with the
 frame prefetcher, the threaded GBA, renders, --eval-gt and --save-map, the
@@ -108,13 +112,13 @@ EST_SCALE_REL = 1e-3      # conformal scales
 EST_FIBA_M = 2e-2
 EST_FIBA_VB = 5e-3
 EST_FIBA_CHI2_REL = 2e-3
-EST_WARM_CALLS = 5
+EST_WARM_CALLS = 3
 TV_KF = 2                 # two-view between keyframes 0 and TV_KF
 FIBA_SCALE = 1.5          # the b_init full_inertial_ba's mis-scaled start
 INIT_SCALE = 2.5          # the scale inertial initialization recovers
 
 # phase 12: large windows (the implicit-Schur route) and the device mesh
-LARGE_KFS = (64, 66, 128, 200, 300)   # prefixes of one 300-KF window
+LARGE_KFS = (64, 66, 128, 300)   # prefixes of one 300-KF window
 LARGE_POINTS = 120000     # its scene: ~280 observations a keyframe
 LARGE_CPU_KFS = (64, 66)  # the sizes also solved on the CPU
 # The implicit route against the dense one (and a sharded solve against one
@@ -135,8 +139,9 @@ VI_5KF = dict(n_kf=5, n_mp=48, n_obs=160, n_col=12, seed=3)
 VI_CHI2_REL, VI_T_M, VI_POINT_M = 5e-4, 1e-3, 1e-2
 
 # phase 9: the System on the rendered corridor
-SYS_FRAMES = 100          # 5 s at 20 Hz
-SYS_F32_FRAMES = 20       # the f32 rerun, against a CPU run
+SYS_CORRIDOR_FRAMES = 100  # the corridor rendered (phase 11 reads 80)
+SYS_FRAMES = 70           # tracked: the IMU init (~frame 43), VIBA1 (~59)
+SYS_F32_FRAMES = 12       # the f32 rerun, against a CPU run
 SYS_IMU_INI_TIME = 2.0
 # KF-ATE limit: a few times the 1.0-1.95 cm the card has read, far inside
 # bench.py's pinned live-corridor 3 x 0.86 m
@@ -180,6 +185,7 @@ UMA_FRAMES = 52           # (b) 4.3 s at uma.yaml's 12 fps
 UMA_IMU_HZ = 250.0        # uma.yaml's IMU.Frequency
 T1024_FRAMES = 52         # (c) 2.6 s: the IMU init (~frame 43) + ~8 frames
 T1024_TRACKED = 10        # (c) frames that must track after the init
+T1024_BUSY_FRAMES = 5     # (c) device busy share over its last frames
 
 # phase 10: loop closing on the card
 LOOP_FRAMES = 168         # testing.make_loop_sequence, as tests/ run it
@@ -195,6 +201,27 @@ LC_RANSAC_MATCHES = 200
 LC_GRAPH_KFS = 300        # a EuRoC MH-sized essential graph
 LC_GRAPH_R = 2e-5         # essential graphs: rotation entries [3.8e-6]
 LC_GRAPH_M = 1e-3         # essential graphs: keyframe centres [2.3e-4 m]
+# (e) the fisheye loop: the same sequence through configs/tumvi.yaml's
+# camera block as shipped (KB8 512x512, T_b_c1) with the TUM vocabulary,
+# tracked 8 frames past the closure (testing.make_loop_sequence overrun):
+# when the first frame after the initialization loses every match, the
+# tracking resets and its map starts a few frames late, with 2 keyframes
+# fewer at the end (64 without the overrun, below ba.IMPLICIT_MIN_KF); the
+# post-loop KF-ATE pin: the CPU's reading (the port with its defaults
+# there) 0.0196 m
+LOOP_FISH_CONFIG = "tumvi.yaml"
+LOOP_FISH_OVERRUN = 8
+LOOP_FISH_PINNED_ATE_M = 0.020
+
+
+# the corridors phases 9 and 13 track, each rendered once (numpy only) by a
+# child process that phase 1 starts, while the card runs phases 2-8:
+# name -> (config, frames, fps, IMU Hz); phase 9's pinhole corridor, then
+# phase 13's Kannala-Brandt ones through testing.fisheye_canvas
+FIXTURES = {"phase9": ("euroc.yaml", SYS_CORRIDOR_FRAMES, 20.0, 200.0),
+            "tumvi.yaml": ("tumvi.yaml", TUMVI_FRAMES, 20.0, 200.0),
+            "uma.yaml": ("uma.yaml", UMA_FRAMES, 12.0, UMA_IMU_HZ),
+            "tumvi1024.yaml": ("tumvi1024.yaml", T1024_FRAMES, 20.0, 200.0)}
 
 
 class PhaseError(RuntimeError):
@@ -208,6 +235,43 @@ def check(cond, msg):
 
 def say(msg):
     print(msg, flush=True)
+
+
+def render_fixtures(out_dir):
+    """Render every corridor of FIXTURES into out_dir/<name>.npz, in order
+    (the child process phase 1 starts). Phase 9's is render_corridor with
+    euroc.yaml's Tbc; a Kannala-Brandt one is rendered through
+    testing.fisheye_canvas(cam) and resampled by testing.distort_frames."""
+    import numpy as np
+
+    from ppg_slam_tpu_torch import testing
+    from ppg_slam_tpu_torch.pipeline.system import (camera_from_settings,
+                                                    load_settings)
+
+    for name, (config, n_frames, fps, imu_hz) in FIXTURES.items():
+        settings = load_settings(os.path.join(ROOT, "configs", config))
+        t0 = time.time()
+        if name == "phase9":
+            c = testing.render_corridor(n_frames=n_frames, seed=7,
+                                        Tbc=settings["Tbc"])
+        else:
+            cam = camera_from_settings(settings)
+            canvas = testing.fisheye_canvas(cam)
+            c = testing.render_corridor(
+                n_frames=n_frames, seed=FISH_SEED, cam=canvas,
+                Tbc=settings["Tbc"], fps=fps, imu_hz=imu_hz,
+                reach=FISH_REACH)
+            c.frames = testing.distort_frames(c.frames, cam, canvas=canvas)
+        tmp = os.path.join(out_dir, name + ".part.npz")
+        np.savez(tmp, frames=np.stack(c.frames), times=np.asarray(c.times),
+                 cam_R=np.stack([R for R, _ in c.cam_poses]),
+                 cam_t=np.stack([t for _, t in c.cam_poses]),
+                 body_R=np.stack([R for R, _ in c.body_poses]),
+                 body_t=np.stack([t for _, t in c.body_poses]),
+                 body_vels=np.stack(c.body_vels), imu=c.imu,
+                 gravity=c.gravity, fps=c.fps,
+                 seconds=time.time() - t0)
+        os.replace(tmp, os.path.join(out_dir, name + ".npz"))
 
 
 def time_cuda(fn, reps=50, rounds=5):
@@ -435,6 +499,37 @@ def device_profile(fn):
     return kernels, copies, busy_us / 1e3, syncs
 
 
+class BusyWindow:
+    """Device busy time over the frames from `first` on, as drive_system's
+    on_frame: torch.profiler (CUDA activity) starts before frame `first`;
+    stop() ends it and returns (device busy ms, wall ms) of the window."""
+
+    def __init__(self, first):
+        self.first = first
+        self.prof = None
+
+    def __call__(self, k):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if k == self.first:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        busy_ms = sum(e.time_range.elapsed_us() for e in self.prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      ) / 1e3
+        return busy_ms, wall_ms
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -444,8 +539,76 @@ class Smoke:
         self.result = {}
 
     # ------------------------------------------------------------------
+    def start_renders(self):
+        """Start the child process that renders FIXTURES, on the last core
+        with one math-library thread, and keep this process (its thread
+        pool sized to match) on the other cores, so that no phase timed
+        beside the child shares a core with it; stop_renders (at exit) ends
+        it and removes its files."""
+        import atexit
+        import tempfile
+
+        self.fixture_dir = tempfile.mkdtemp(prefix="ppg_smoke_fixtures_")
+        self.renderer_log = open(os.path.join(self.fixture_dir, "log"), "w")
+        cores = sorted(os.sched_getaffinity(0))
+        core = cores[-1]
+        if len(cores) > 1:
+            os.sched_setaffinity(0, cores[:-1])
+            self.torch.set_num_threads(min(self.torch.get_num_threads(),
+                                           len(cores) - 1))
+        env = dict(os.environ, **{k: "1" for k in (
+            "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+        self.renderer = subprocess.Popen(
+            [sys.executable, "-c", f"import os; os.sched_setaffinity(0, "
+             f"{{{core}}}); import chip_smoke as c; "
+             f"c.render_fixtures({self.fixture_dir!r})"],
+            cwd=ROOT, env=env, stdout=self.renderer_log,
+            stderr=subprocess.STDOUT)
+        self.renderer_core = core
+        atexit.register(self.stop_renders)
+
+    def stop_renders(self):
+        import shutil
+
+        if self.renderer.poll() is None:
+            self.renderer.kill()
+        self.renderer.wait()
+        self.renderer_log.close()
+        shutil.rmtree(self.fixture_dir, ignore_errors=True)
+
+    def fixture(self, name):
+        """The corridor FIXTURES[name] as testing.render_corridor returns
+        it, once the child process has written it."""
+        import types
+
+        import numpy as np
+
+        path = os.path.join(self.fixture_dir, name + ".npz")
+        t0 = time.time()
+        while not os.path.exists(path):
+            if self.renderer.poll() is not None:
+                with open(os.path.join(self.fixture_dir, "log")) as f:
+                    log = f.read()[-2000:]
+                raise PhaseError(f"the fixture renderer exited "
+                                 f"({self.renderer.returncode}) before "
+                                 f"{name}: {log}")
+            time.sleep(0.2)
+        with np.load(path) as z:
+            c = types.SimpleNamespace(
+                frames=list(z["frames"]), times=[float(t) for t in
+                                                 z["times"]],
+                cam_poses=list(zip(z["cam_R"], z["cam_t"])),
+                body_poses=list(zip(z["body_R"], z["body_t"])),
+                body_vels=list(z["body_vels"]), imu=z["imu"],
+                gravity=z["gravity"], fps=float(z["fps"]))
+            say(f"  {name}: {len(c.frames)} frames rendered in "
+                f"{float(z['seconds']):.1f} s on core {self.renderer_core} "
+                f"beside the phases (waited {time.time() - t0:.1f} s)")
+        return c
+
     def phase1_card(self):
         torch = self.torch
+        self.start_renders()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -455,7 +618,10 @@ class Smoke:
         say(self.card)
         say(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
-            f"count {torch.cuda.device_count()}")
+            f"count {torch.cuda.device_count()}; the fixture renderer on "
+            f"core {self.renderer_core}, this process on "
+            f"{len(os.sched_getaffinity(0))} cores with "
+            f"{torch.get_num_threads()} threads")
 
     def phase2_build(self):
         from ppg_slam_tpu_torch import kernels, native
@@ -1459,24 +1625,14 @@ class Smoke:
         import tempfile
 
         import numpy as np
-        import torch
-        from torch.profiler import ProfilerActivity, profile
 
-        from ppg_slam_tpu_torch import testing
         from ppg_slam_tpu_torch.pipeline import OK, System
-        from ppg_slam_tpu_torch.pipeline.system import load_settings
         from ppg_slam_tpu_torch.utils import profiler
         from ppg_slam_tpu_torch.utils.evaluation import align_and_ate
 
         t_phase = time.time()
         voc = os.path.join(ROOT, "assets", "voc_euroc_9x3.npz")
-        tbc = load_settings(os.path.join(ROOT, "configs", "euroc.yaml"))[
-            "Tbc"]
-        corridor = self.corridor = testing.render_corridor(
-            n_frames=SYS_FRAMES, seed=7, Tbc=tbc)
-        say(f"  corridor: {SYS_FRAMES} frames 752x480 rendered, "
-            f"{len(corridor.imu)} IMU samples, "
-            f"{time.time() - t_phase:.1f} s")
+        corridor = self.sys_corridor()
 
         with tempfile.TemporaryDirectory() as tmp_dir:
             settings = self.system_settings(tmp_dir)
@@ -1490,28 +1646,12 @@ class Smoke:
                   "System did not default to the card with active loop "
                   "closing")
             profiler.reset()
-            busy = {}
-            first_busy = SYS_FRAMES - SYS_BUSY_FRAMES
-
-            def on_frame(k):
-                if k == first_busy:
-                    torch.cuda.synchronize()
-                    busy["prof"] = profile(
-                        activities=[ProfilerActivity.CUDA])
-                    busy["prof"].__enter__()
-                    busy["t0"] = time.perf_counter()
-
+            busy = BusyWindow(SYS_FRAMES - SYS_BUSY_FRAMES)
             self.reset_launches()
-            rows = self.drive_system(system, corridor, SYS_FRAMES, on_frame)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - busy["t0"]) * 1e3
-            busy["prof"].__exit__(None, None, None)
+            rows = self.drive_system(system, corridor, SYS_FRAMES, busy)
+            busy_ms, wall_ms = busy.stop()
             self.sys_launches = self.read_launches(SYS_FRAMES,
                                                    "System main path")
-            busy_ms = sum(e.time_range.elapsed_us()
-                          for e in busy["prof"].events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          ) / 1e3
             tr = system.tracking
             dm = tr._dev_matcher
             devices = {k: v for k, v in profiler.counters.items()
@@ -1633,35 +1773,57 @@ class Smoke:
         size and at 300 keyframes) on CUDA against the same call on CPU
         tensors, timed and profiled; (c) the background GBA against the
         synchronous one, and a stopped run; (d) the loop map through a
-        checkpoint."""
+        checkpoint; (e) the same loop through configs/tumvi.yaml's
+        Kannala-Brandt camera block as shipped (512x512, T_b_c1) with the
+        TUM vocabulary, held to (b)'s checks, the loop GBA profiled, then
+        the loop GBA once more on the final map, which past 64 keyframes
+        takes the implicit route."""
         t_phase = time.time()
         loop = self.loop_run()
         self.loop_map, self.loop_voc = loop["map"], loop["voc"]
         self.loop_functions(loop["n_kf"])
         self.background_gba()
         self.checkpoint(loop)
-        say(f"phase 10 ok: loop closing on the card: {loop['summary']}; in "
-            f"{time.time() - t_phase:.1f} s [{self.card}]")
+        self.reset_launches()
+        fish = self.loop_run(config=LOOP_FISH_CONFIG, tag="(e)")
+        self.fish_loop_launches = self.read_launches(0, "(e) fisheye loop")
+        say(f"phase 10 ok: loop closing on the card: {loop['summary']}; "
+            f"fisheye: {fish['summary']}; in {time.time() - t_phase:.1f} s "
+            f"[{self.card}]")
 
-    def loop_run(self):
+    def loop_run(self, config=None, tag="(b)"):
+        """The loop sequence through Tracking, LocalMapping and an active
+        LoopClosing on the card: (b) on testing.CAM with identity
+        extrinsics and the EuRoC vocabulary, or (e) through configs/<config>'s
+        camera and T_b_c1 with the TUM vocabulary, its loop GBAs profiled."""
         import numpy as np
+        import torch
 
         import ppg_slam_tpu_torch.worldmap as pwm
         from ppg_slam_tpu_torch import testing
         from ppg_slam_tpu_torch.bow import Vocabulary
         from ppg_slam_tpu_torch.pipeline import (OK, LocalMapping,
                                                  LoopClosing, Tracking)
+        from ppg_slam_tpu_torch.pipeline.system import load_settings
         from ppg_slam_tpu_torch.utils import profiler
         from ppg_slam_tpu_torch.utils.evaluation import ate_rmse
 
         t0 = time.time()
         pwm.reset_ids()
-        seq = testing.make_loop_sequence(n_frames=LOOP_FRAMES)
-        voc = Vocabulary.load(os.path.join(ROOT, "assets",
-                                           "voc_euroc_9x3.npz"))
+        if config is None:
+            cam, Tbc, voc_name = testing.CAM, None, "voc_euroc_9x3.npz"
+            pinned = LOOP_PINNED_ATE_M
+        else:
+            cam = self.settings_camera(config)
+            Tbc = load_settings(os.path.join(ROOT, "configs", config))["Tbc"]
+            voc_name, pinned = "voc_tum_9x3.npz", LOOP_FISH_PINNED_ATE_M
+        seq = testing.make_loop_sequence(
+            n_frames=LOOP_FRAMES, cam=cam, Tbc=Tbc,
+            overrun=0 if config is None else LOOP_FISH_OVERRUN)
+        voc = Vocabulary.load(os.path.join(ROOT, "assets", voc_name))
         saved = pwm.Map.imu_ini_time
         pwm.Map.imu_ini_time = SYS_IMU_INI_TIME
-        wmap = pwm.Map(pwm.Rig(seq.scene.cam, freq=200.0), vocabulary=voc)
+        wmap = pwm.Map(pwm.Rig(cam, Tbc=Tbc, freq=200.0), vocabulary=voc)
         tracking = Tracking(wmap, testing.SyntheticExtractor(seq))
         lc = LoopClosing(wmap, active=True)
         lm = LocalMapping(wmap, tracking=tracking, loop_closer=lc)
@@ -1670,11 +1832,19 @@ class Smoke:
         check(all(m.device == self.dev for m in (tracking, lm, lc)),
               "the loop run's modules did not default to the card")
 
+        # a keyframe's truth by its timestamp: a tracking reset, which a
+        # round-off can set off just after the init, restarts the frame ids
+        # from 0, so kf.frame_id is then no index into the sequence
+        frame_of = {t: i for i, t in enumerate(seq.frame_times)}
+
+        def truth(kf):
+            return seq.frame_twc(frame_of[kf.timestamp])
+
         def kf_ate():
             kfs = [kf for kf in wmap.keyframes if not kf.is_bad()]
             return ate_rmse(np.stack([kf.camera_center() for kf in kfs]),
-                            np.stack([seq.frame_poses[kf.frame_id][1]
-                                      for kf in kfs]), with_scale=True)
+                            np.stack([truth(kf)[1] for kf in kfs]),
+                            with_scale=True)
 
         pre = {}
         correct = lc.correct_loop
@@ -1685,6 +1855,40 @@ class Smoke:
             correct()
 
         lc.correct_loop = pre_loop_then_correct
+        card = f".{self.dev.type}"
+        gbas = []
+        solve_gba = lc._solve_gba
+
+        def timed_gba(loop_kf_id, abort_check=None):
+            # each loop GBA's summary (KF count, chi2), host ms and route,
+            # the route from the solve counters around it; (e)'s first (the
+            # loop's own) under device_profile, for its device busy share
+            keys = (f"device.solve_ba_implicit{card}",
+                    f"device.solve_ba{card}")
+            before = [profiler.counters.get(k, 0) for k in keys]
+            out = {}
+
+            def run():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out["summary"] = solve_gba(loop_kf_id,
+                                           abort_check=abort_check)
+                torch.cuda.synchronize()
+                out["ms"] = (time.perf_counter() - t1) * 1e3
+
+            prof = None
+            if config is not None and not gbas:
+                prof = device_profile(run)
+            else:
+                run()
+            n_impl, n_solves = (profiler.counters.get(k, 0) - b
+                                for k, b in zip(keys, before))
+            gbas.append(dict(out, prof=prof, implicit=n_impl,
+                             solves=n_solves,
+                             route="implicit" if n_impl else "dense"))
+            return out["summary"]
+
+        lc._solve_gba = timed_gba
         profiler.reset()
         last_t = -1.0
         try:
@@ -1715,16 +1919,15 @@ class Smoke:
         errs = []
         for kf in wmap.keyframes:
             if not kf.is_bad():
-                Rd = kf.Rcw @ seq.frame_poses[kf.frame_id][0]
+                Rd = kf.Rcw @ truth(kf)[0]
                 errs.append(np.degrees(np.arccos(np.clip(Rd[1, 1], -1, 1))))
         rp = float(np.median(errs))
         check(rp < 2.0, f"loop run: median roll/pitch error {rp} deg")
         post = kf_ate()
-        check(post < pre["ate"] and post < 2 * LOOP_PINNED_ATE_M,
+        check(post < pre["ate"] and post < 2 * pinned,
               f"loop run: KF-ATE {pre['ate']} m before the loop, {post} m "
-              f"after (limit {2 * LOOP_PINNED_ATE_M})")
+              f"after (limit {2 * pinned})")
         check(lc.gba_error is None, f"loop GBA failed: {lc.gba_error}")
-        card = f".{self.dev.type}"
         off_card = {k: v for k, v in devices.items() if not k.endswith(card)}
         check(not off_card, f"loop run: calls off the card: {off_card}")
         never = [n for n in LOOP_DEVICE_CALLS
@@ -1733,29 +1936,108 @@ class Smoke:
         det = stats["loop_closing.detect"]
         ms = {n.split(".", 1)[1]: round(s.total / s.count * 1e3, 1)
               for n, s in stats.items()}
-        # the loop GBA (full_inertial_ba past 64 KFs on CUDA) takes the
-        # implicit route; each of its chunked solves counts once
-        gba = stats.get("loop_closing.gba")
-        self.loop_gba = dict(
-            ms=gba.total / gba.count * 1e3 if gba else None,
-            implicit_solves=devices.get(f"device.solve_ba_implicit{card}", 0),
-            solves=devices.get(f"device.solve_ba{card}", 0),
-            ate_before=pre["ate"], ate_after=post)
-        say(f"  (b) loop run: {LOOP_FRAMES} frames in {wall:.1f} s, "
-            f"{wmap.n_keyframes()} KFs (max id {wmap.max_kf_id}), "
-            f"{lc.n_loops_closed} loop(s) closed on KF {pre['kf_id']}; "
-            f"KF-ATE {pre['ate']:.4f} -> {post:.4f} m; median roll/pitch "
-            f"error {rp:.3f} deg; detect {det.count} KFs, "
-            f"{det.total / det.count * 1e3:.1f} ms per KF (max "
-            f"{det.max * 1e3:.1f}); ms per call {ms} (correct includes the "
-            f"essential graph and the GBA); calls by device {devices}; "
-            f"loop GBA {self.loop_gba['ms'] or 0:.1f} ms with "
-            f"{self.loop_gba['implicit_solves']} implicit-route solves of "
-            f"{self.loop_gba['solves']} solve_ba calls in the run "
-            f"[{self.card}]")
+        head = (f"  {tag} loop run: {seq.n_frames} frames in {wall:.1f} s, "
+                f"{wmap.n_keyframes()} KFs (max id {wmap.max_kf_id}), "
+                f"{tracking.n_resets} tracking reset(s), "
+                f"{lc.n_loops_closed} loop(s) closed on KF {pre['kf_id']}; "
+                f"KF-ATE {pre['ate']:.4f} -> {post:.4f} m (limit "
+                f"{2 * pinned}); median roll/pitch error {rp:.3f} deg; detect "
+                f"{det.count} KFs, {det.total / det.count * 1e3:.1f} ms per "
+                f"KF (max {det.max * 1e3:.1f}); ms per call {ms} (correct "
+                f"includes the essential graph and the GBA); calls by device "
+                f"{devices}; ")
+        summary = (f"loop closed on KF {pre['kf_id']}, KF-ATE "
+                   f"{pre['ate']:.4f} -> {post:.4f} m")
+        check(len(gbas) == lc.n_loops_closed,
+              f"{tag}: {len(gbas)} loop GBAs for {lc.n_loops_closed} loops")
+        if config is not None:
+            after, step = self.final_map_gba(wmap, lc, tag, kf_ate)
+            check(np.isfinite(after) and after < 2 * pinned,
+                  f"{tag}: KF-ATE {after} m after the final map's GBA (limit "
+                  f"{2 * pinned})")
+        for g in gbas:
+            self.check_loop_gba(g, tag)
+
+        def row(g):
+            sm = g["summary"]
+            text = (f"{g['route']} route, {sm['n_kf']} KFs, {g['solves']} "
+                    f"solve_ba calls, chi2 {sm['initial_chi2']:.6g} -> "
+                    f"{sm['final_chi2']:.6g}, {g['ms']:.1f} ms")
+            if g["prof"] is None:
+                return text
+            k, c, busy, syncs = g["prof"]
+            return (text + f" under the profiler: {k} kernels + {c} copies, "
+                    f"device busy {busy:.1f} ms ({100 * busy / g['ms']:.1f} "
+                    f"%), {syncs} host syncs flagged")
+
+        loop_gba = gbas[0]
+        text = head + f"loop GBA: {row(loop_gba)}"
+        summary += (f", loop GBA {loop_gba['route']} at "
+                    f"{loop_gba['summary']['n_kf']} KFs")
+        if config is not None:
+            final = gbas[-1]
+            text += (f"; the final map's GBA: {row(final)}, KF-ATE after it "
+                     f"{after:.4f} m; {step}")
+            summary += (f", final GBA {final['route']} at "
+                        f"{final['summary']['n_kf']} KFs")
+        say(text + f" [{self.card}]")
         return dict(map=wmap, voc=voc, n_kf=wmap.n_keyframes(),
-                    summary=(f"loop closed on KF {pre['kf_id']}, KF-ATE "
-                             f"{pre['ate']:.4f} -> {post:.4f} m"))
+                    summary=summary)
+
+    def check_loop_gba(self, g, tag):
+        """A loop GBA as timed_gba read it: it solved, chi2 fell, and every
+        solve took the route its size gives the entry points on CUDA
+        (implicit from ba.IMPLICIT_MIN_KF keyframes on)."""
+        import numpy as np
+
+        from ppg_slam_tpu_torch.estimator.ba import IMPLICIT_MIN_KF
+
+        s = g["summary"]
+        check(s is not None and np.isfinite(s["final_chi2"])
+              and s["final_chi2"] < s["initial_chi2"],
+              f"{tag}: a loop GBA's chi2 did not fall: {s}")
+        want = s["n_kf"] >= IMPLICIT_MIN_KF
+        check(g["solves"] >= 1
+              and g["implicit"] == (g["solves"] if want else 0),
+              f"{tag}: the loop GBA at {s['n_kf']} KFs took "
+              f"{g['implicit']} implicit-route solves of {g['solves']}")
+
+    def final_map_gba(self, wmap, lc, tag, kf_ate):
+        """(e) after its run: the final map, which must hold at least
+        ba.IMPLICIT_MIN_KF keyframes, through the loop GBA once more (the
+        implicit route, with the Kannala-Brandt projection Jacobians),
+        that GBA's first LM step first held to the dense route's on the same
+        map, CUDA's sums in a fixed order. Returns (kf_ate() after it, a
+        line on that step)."""
+        import dataclasses
+
+        from ppg_slam_tpu_torch.estimator.ba import IMPLICIT_MIN_KF
+        from ppg_slam_tpu_torch.estimator.ba_core import solve_ba
+
+        n_kf = wmap.n_keyframes()
+        check(n_kf >= IMPLICIT_MIN_KF,
+              f"{tag}: the final map holds {n_kf} KFs, fewer than the "
+              f"implicit route's {IMPLICIT_MIN_KF}")
+        problem = self.window_problem(wmap, "fiba")
+        args = self.solve_args(problem, self.dev, wmap.rig)
+        one = dataclasses.replace(problem[4], iters=1)
+        first = {}
+        with deterministic_sums():
+            for route in ("dense", "implicit"):
+                first[route] = solve_ba(*args, one,
+                                        implicit=route == "implicit")
+        c0 = float(first["implicit"][2]["chi2_hist"][0])
+        c1 = float(first["implicit"][2]["final_chi2"])
+        s_t, s_p, s_c = self.step_diff(first["implicit"], first["dense"],
+                                       args)
+        check(c1 < c0 and s_t <= ROUTE_STEP_REL and s_p <= ROUTE_STEP_REL,
+              f"{tag} final map, {n_kf} KFs: the implicit route's first LM "
+              f"step (chi2 {c0} -> {c1}) against the dense route's: KF "
+              f"positions {s_t}, points {s_p} of the step; chi2 {s_c}")
+        lc.run_global_ba(max(kf.mnId for kf in wmap.all_keyframes()))
+        return kf_ate(), (f"its first LM step, implicit vs dense: chi2 "
+                          f"{c0:.6g} -> {c1:.6g}, KF {s_t:.3g}, point "
+                          f"{s_p:.3g} of the step, chi2 {s_c:.3g}")
 
     def loop_functions(self, n_loop):
         """(a) each loop-closing function on CUDA against the same call on
@@ -2034,15 +2316,10 @@ class Smoke:
             f"{time.time() - t_phase:.1f} s [{self.card}]")
 
     def sys_corridor(self):
-        """Phase 9's corridor (rendered here when phase 9 did not run)."""
+        """Phase 9's corridor: testing.render_corridor(SYS_CORRIDOR_FRAMES,
+        seed 7) with euroc.yaml's Tbc, 752x480."""
         if not hasattr(self, "corridor"):
-            from ppg_slam_tpu_torch import testing
-            from ppg_slam_tpu_torch.pipeline.system import load_settings
-
-            tbc = load_settings(os.path.join(ROOT, "configs",
-                                             "euroc.yaml"))["Tbc"]
-            self.corridor = testing.render_corridor(n_frames=SYS_FRAMES,
-                                                    seed=7, Tbc=tbc)
+            self.corridor = self.fixture("phase9")
         return self.corridor
 
     def cli_corridor(self):
@@ -2393,9 +2670,10 @@ class Smoke:
                                 pose_cg_iters=64, backtrack=True, tol=0.0)
         return states, points, prob, kf_dof, opts
 
-    def solve_args(self, problem, device):
-        """solve_ba's positional arguments of a window_problem on
-        `device`."""
+    def solve_args(self, problem, device, rig=None):
+        """solve_ba's positional arguments of a window_problem on `device`:
+        with `rig`, its camera and mount, else testing.EUROC_CAM's, mounted
+        as the body."""
         import numpy as np
         import torch
 
@@ -2403,12 +2681,14 @@ class Smoke:
         from ppg_slam_tpu_torch.estimator.ba_core import BAProblem, KFStates
 
         states, points, prob, kf_dof, _ = problem
+        Rcb, tcb, cam = ((rig.Rcb, rig.tcb, rig.cam) if rig is not None else
+                         (np.eye(3, dtype=np.float32),
+                          np.zeros(3, np.float32), testing.EUROC_CAM))
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         return (KFStates(*map(t, states)), t(points), BAProblem(*map(t, prob)),
                 t(kf_dof), torch.ones(len(points), dtype=torch.bool,
                                       device=device),
-                t(np.eye(3, dtype=np.float32)), t(np.zeros(3, np.float32)),
-                testing.EUROC_CAM)
+                t(Rcb), t(tcb), cam)
 
     def route_diff(self, a, b, gauge):
         """(max KF position difference, median point difference, chi2
@@ -2804,45 +3084,38 @@ class Smoke:
         t_phase = time.time()
         self.fish_launches = {}
         with tempfile.TemporaryDirectory() as tmp:
-            a = self.fisheye_cli(tmp, "tumvi", "tumvi.yaml", TUMVI_FRAMES,
-                                 20.0, 200.0, "(13a)", resume=True)
-            b = self.fisheye_cli(tmp, "uma", "uma.yaml", UMA_FRAMES, 12.0,
-                                 UMA_IMU_HZ, "(13b)")
+            a = self.fisheye_cli(tmp, "tumvi", "tumvi.yaml", "(13a)",
+                                 resume=True)
+            b = self.fisheye_cli(tmp, "uma", "uma.yaml", "(13b)")
         c = self.fisheye_1024()
         say(f"phase 13 ok: the Kannala-Brandt configurations on the card: "
             f"tumvi 512x512 {a}; uma 1024x768 {b}; tumvi 1024x1024 {c}; in "
             f"{time.time() - t_phase:.1f} s [{self.card}]")
 
-    def fisheye_corridor(self, config, n_frames, fps, imu_hz):
-        """configs/<config>'s camera and the corridor it takes: rendered
-        through testing.fisheye_canvas(cam) with the config's T_b_c1 and
-        resampled into the fisheye by testing.distort_frames."""
+    def fisheye_corridor(self, config):
+        """configs/<config>'s camera and the corridor it takes (FIXTURES):
+        rendered through testing.fisheye_canvas(cam) with the config's
+        T_b_c1 and resampled into the fisheye by testing.distort_frames."""
         from ppg_slam_tpu_torch import testing
-        from ppg_slam_tpu_torch.pipeline.system import load_settings
 
         cam = self.settings_camera(config)
         check(cam.is_fisheye, f"{config} is not Kannala-Brandt")
         canvas = testing.fisheye_canvas(cam)
-        t0 = time.time()
-        corridor = testing.render_corridor(
-            n_frames=n_frames, seed=FISH_SEED, cam=canvas,
-            Tbc=load_settings(os.path.join(ROOT, "configs", config))["Tbc"],
-            fps=fps, imu_hz=imu_hz, reach=FISH_REACH)
-        corridor.frames = testing.distort_frames(corridor.frames, cam,
-                                                 canvas=canvas)
+        corridor = self.fixture(config)
+        _, n_frames, fps, imu_hz = FIXTURES[config]
         say(f"  {config}: {n_frames} frames {cam.width}x{cam.height} KB8 "
             f"from a {canvas.width}x{canvas.height} canvas (f "
             f"{canvas.fx:.1f}), {len(corridor.imu)} IMU rows at "
-            f"{imu_hz:g} Hz, {fps:g} fps, in {time.time() - t0:.1f} s")
+            f"{imu_hz:g} Hz, {fps:g} fps")
         return cam, corridor
 
-    def fisheye_cli(self, tmp, kind, config, n_frames, fps, imu_hz, tag,
-                    resume=False):
+    def fisheye_cli(self, tmp, kind, config, tag, resume=False):
         """(13a), (13b): one fisheye configuration through the CLI (and,
         with resume, the --load-map run); its summary."""
         from ppg_slam_tpu_torch import testing
 
-        cam, corridor = self.fisheye_corridor(config, n_frames, fps, imu_hz)
+        cam, corridor = self.fisheye_corridor(config)
+        n_frames = len(corridor.frames)
         if kind == "uma":
             self.uma_frame = (cam, corridor.frames[8])
         folder = os.path.join(tmp, kind)
@@ -2882,8 +3155,7 @@ class Smoke:
         from ppg_slam_tpu_torch.pipeline import OK, System
         from ppg_slam_tpu_torch.utils import profiler
 
-        cam, corridor = self.fisheye_corridor("tumvi1024.yaml", T1024_FRAMES,
-                                              20.0, 200.0)
+        cam, corridor = self.fisheye_corridor("tumvi1024.yaml")
         check((cam.width, cam.height) == (1024, 1024),
               "tumvi1024.yaml is not 1024x1024")
         cases = [self.fisheye_case("tumvi1024", cam, corridor.frames[8]),
@@ -2898,8 +3170,10 @@ class Smoke:
                 desc_transfer="device", compute_dtype="bf16")
             profiler.reset()
             self.reset_launches()
+            busy = BusyWindow(T1024_FRAMES - T1024_BUSY_FRAMES)
             t0 = time.time()
-            rows = self.drive_system(system, corridor, T1024_FRAMES)
+            rows = self.drive_system(system, corridor, T1024_FRAMES, busy)
+            busy_ms, busy_wall_ms = busy.stop()
             wall = time.time() - t0
             self.fish_launches["tumvi1024_system"] = self.read_launches(
                 T1024_FRAMES, "(13c) the 1024x1024 System")
@@ -2937,8 +3211,11 @@ class Smoke:
             f"steady frame ({len(steady)} frames from frame {first}, host "
             f"ms, pose = {'pose-inertial' if inertial else 'pose'}"
             f"): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-            + f"; launches {self.fish_launches['tumvi1024_system']} "
-            f"[{self.card}]")
+            + f"; device busy {busy_ms:.1f} of {busy_wall_ms:.1f} ms over "
+            f"the last {T1024_BUSY_FRAMES} frames (from frame "
+            f"{T1024_FRAMES - T1024_BUSY_FRAMES}; "
+            f"{100 * busy_ms / busy_wall_ms:.1f} %); launches "
+            f"{self.fish_launches['tumvi1024_system']} [{self.card}]")
         return (f"kernels bit-equal at 1024x1024 and 1024x768, "
                 f"{len(states) - k_init} frames tracked from frame {k_init}, "
                 f"steady frame median {split['frame']:.1f} ms")
@@ -2959,6 +3236,9 @@ class Smoke:
             "launches_fisheye": {run: got["nearest_binary_packed"] for run,
                                  got in self.fish_launches.items()},
             "launches_mesh": self.mesh_launches["nearest_binary_packed"],
+            # phase 10 (e): the fisheye loop on synthetic features
+            "launches_fisheye_loop":
+                self.fish_loop_launches["nearest_binary_packed"],
             "on_main_path": False,
             "max_abs_err": self.max_abs_err,
             # one frame's four sampler calls at their former main-path sizes
@@ -2982,6 +3262,7 @@ class Smoke:
                 "launches_frontend": self.launches[name],
                 "launches_cli": self.cli_launches[name],
                 "launches_mesh": self.mesh_launches[name],
+                "launches_fisheye_loop": self.fish_loop_launches[name],
                 "launches_fisheye": {run: got[name] for run, got in
                                      self.fish_launches.items()},
                 "on_main_path": True,

@@ -241,6 +241,14 @@ class LoopClosing:
         idxs = [i for i, mp in enumerate(matches1) if mp is not None]
         if len(idxs) < 10:
             return Scw, 0
+        # The observations are the keypoints in the pixels the camera model
+        # projects to, kf.kp: undistorted on the pinhole, distorted on
+        # Kannala-Brandt, whose project() applies the fisheye distortion
+        # (tracking.py's pose solves take the same). The JAX package reads
+        # kp_un here and in _detect_from_bow, which on Kannala-Brandt
+        # compares a distorted projection with an undistorted pixel, so a
+        # fisheye loop keeps too few Sim3 inliers to close
+        # (tests/test_torch_fisheye_loop.py).
         X1, X2, uv1, uv2 = [], [], [], []
         for i in idxs:
             mp2 = matches1[i]
@@ -251,8 +259,8 @@ class LoopClosing:
             src = mp1 if (mp1 is not None and not mp1.is_bad()) else mp2
             X1.append(kf1.Rcw @ src.pos + kf1.tcw)
             X2.append(kf2.Rcw @ mp2.pos + kf2.tcw)
-            uv1.append(kf1.kp_un[i])
-            uv2.append(kf2.kp_un[idx2])
+            uv1.append(kf1.kp[i])
+            uv2.append(kf2.kp[idx2])
         if len(X1) < 10:
             return Scw, 0
         # init S12 = Scw * Swm (camera1 <- camera2)
@@ -319,7 +327,7 @@ class LoopClosing:
                            for i in idxs])
             X2 = np.stack([best_bow_kf.Rcw @ matched_points[i].pos
                            + best_bow_kf.tcw for i in idxs])
-            uv1 = kf.kp_un[idxs]
+            uv1 = kf.kp[idxs]  # kf.kp: see _optimize_sim3_pair
             uv2 = np.stack([
                 matched_points[i].pos[:2] * 0  # placeholder, filled below
                 for i in idxs])
@@ -327,7 +335,7 @@ class LoopClosing:
             for r, i in enumerate(idxs):
                 j = matched_points[i].get_index_in_keyframe(best_bow_kf)
                 if j >= 0:
-                    uv2[r] = best_bow_kf.kp_un[j]
+                    uv2[r] = best_bow_kf.kp[j]
                     ok_rows.append(r)
             if self.debug:
                 print(f"    [lc] cand KF{cand.mnId}: idxs={len(idxs)} rows={len(ok_rows)}")
@@ -595,7 +603,16 @@ class LoopClosing:
               for v in (ii, jj)]
 
         if wm.imu_initialized:
-            # 4-DoF: body poses, measurements Ti<-j from current poses
+            # 4-DoF: body poses, measurements Ti<-j from current poses.
+            # The vertices are the bodies, so each camera measurement
+            # becomes the bodies' Tbi<-bj = Tbc Tci<-cj Tcb (ORB-SLAM3's
+            # Edge4DoF compares camera poses, which its vertices derive from
+            # the bodies). The JAX package gives the camera measurement to
+            # the body vertices: with a camera mounted off the body's axes
+            # (every shipped config's T_b_c1) no edge holds at the current
+            # poses, and the graph turns and throws the keyframes
+            # (tests/test_torch_fisheye_loop.py).
+            rig = wm.rig
             Rwb = np.stack([k.imu_rotation() for k in kfs]).astype(np.float32)
             twb = np.stack([k.imu_position() for k in kfs]).astype(np.float32)
             dRij = np.empty((len(ii), 3, 3), np.float32)
@@ -603,13 +620,14 @@ class LoopClosing:
             for k_, (R_, t_, s_) in enumerate(zip(SR, St, Ss)):
                 # Sji maps i->j (camera); Edge4DoF wants Ti<-j: invert
                 Sij = Sim3T(R_, t_, s_).inverse()
-                dRij[k_], dtij[k_] = Sij.to_se3()
+                Rc, tc = Sij.to_se3()
+                dRij[k_] = rig.Rbc @ Rc @ rig.Rcb
+                dtij[k_] = rig.Rbc @ (Rc @ rig.tcb + tc) + rig.tbc
             Rwb, twb, dRij, dtij, fixed = _upload(
                 [Rwb, twb, dRij, dtij, graph_fixed], dev)
             Rf, tf = _fetch(*optimize_essential_graph_4dof(
                 Rwb, twb, Graph4DoF(*ij, dRij, dtij), fixed))
             old = [(k.Rcw.copy(), k.tcw.copy()) for k in kfs]
-            rig = wm.rig
             for i, k in enumerate(kfs):
                 Rbw = Rf[i].T
                 tbw = -Rbw @ tf[i]
@@ -715,23 +733,25 @@ class LoopClosing:
             self._apply_gba(self._gba_loop_kf)
         return True
 
-    def _solve_gba(self, loop_kf_id: int, abort_check) -> None:
+    def _solve_gba(self, loop_kf_id: int, abort_check) -> Optional[dict]:
+        """The loop GBA into the gba_* fields; returns the BA entry point's
+        summary (None where there was nothing to solve)."""
         from ..utils import profiler
 
         with profiler.timer("loop_closing.gba"):
             return self._solve_gba_impl(loop_kf_id, abort_check)
 
-    def _solve_gba_impl(self, loop_kf_id: int, abort_check) -> None:
+    def _solve_gba_impl(self, loop_kf_id: int,
+                        abort_check) -> Optional[dict]:
         wm = self.map
         lock = wm.update_lock if self.threaded_gba else None
         if wm.imu_initialized:
-            full_inertial_ba(wm, iters=50, loop_kf=loop_kf_id, b_init=False,
-                             abort_check=abort_check, map_lock=lock,
-                             device=self.device)
-        else:
-            global_bundle_adjustment(wm, iters=10, loop_kf=loop_kf_id,
-                                     abort_check=abort_check, map_lock=lock,
-                                     device=self.device)
+            return full_inertial_ba(wm, iters=50, loop_kf=loop_kf_id,
+                                    b_init=False, abort_check=abort_check,
+                                    map_lock=lock, device=self.device)
+        return global_bundle_adjustment(wm, iters=10, loop_kf=loop_kf_id,
+                                        abort_check=abort_check,
+                                        map_lock=lock, device=self.device)
 
     def _apply_gba(self, loop_kf_id: int) -> None:
         """Propagate GBA scratch to the live map (LoopClosing.cpp:1189-1289):

@@ -57,6 +57,28 @@ CAM = _cam(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640, height=480)
 # configs/euroc.yaml's pinhole; rendered keypoints are already undistorted
 EUROC_CAM = _cam(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752,
                  height=480)
+# the rays a synthetic Kannala-Brandt view sees (distort_frames' max_theta)
+FISHEYE_MAX_THETA = 1.2
+
+
+def kb8_undistort_f64(cam, d: np.ndarray) -> np.ndarray:
+    """The extractor's undistortion of Kannala-Brandt pixels, in f64: 10
+    Newton steps on theta (KannalaBrandt8.cpp:62-91); f32 out."""
+    px = (d[:, 0].astype(np.float64) - cam.cx) / cam.fx
+    py = (d[:, 1].astype(np.float64) - cam.cy) / cam.fy
+    k1, k2, k3, k4 = cam.dist
+    theta_d = np.minimum(np.hypot(px, py), np.pi / 2)
+    theta = theta_d.copy()
+    for _ in range(10):
+        t2 = theta * theta
+        f = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+        df = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+        theta = theta - (f - theta_d) / df
+    s = np.where(theta_d > 1e-8,
+                 np.tan(theta) / np.maximum(theta_d, 1e-8), 1.0)
+    x, y = px * s, py * s
+    return np.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy],
+                    1).astype(np.float32)
 
 
 class SyntheticScene:
@@ -106,10 +128,20 @@ class SyntheticScene:
         Rcw = so3.exp(ang).astype(np.float32).T
         return Rcw, (-Rcw @ t_wc).astype(np.float32)
 
+    def _in_view(self, Xc: np.ndarray) -> np.ndarray:
+        """Camera-frame points a keypoint can come from: in front of the
+        camera, and on a fisheye no more than FISHEYE_MAX_THETA off the
+        axis (distort_frames' renders are grey beyond it)."""
+        front = Xc[:, 2] > 0.3
+        if self.cam.is_fisheye:
+            front &= (np.arctan2(np.hypot(Xc[:, 0], Xc[:, 1]), Xc[:, 2])
+                      <= FISHEYE_MAX_THETA)
+        return front
+
     def visible(self, Rcw: np.ndarray, tcw: np.ndarray) -> np.ndarray:
         """The ids render(Rcw, tcw) returns without noise or subset."""
         Xc = self.points @ Rcw.T + tcw
-        ids = np.nonzero(Xc[:, 2] > 0.3)[0]
+        ids = np.nonzero(self._in_view(Xc))[0]
         uv = self.cam.project_np(Xc[ids])
         inb = ((uv[:, 0] >= 8) & (uv[:, 0] < self.cam.width - 8)
                & (uv[:, 1] >= 8) & (uv[:, 1] < self.cam.height - 8))
@@ -118,11 +150,17 @@ class SyntheticScene:
     def render(self, Rcw: np.ndarray, tcw: np.ndarray, noise: float = 0.0,
                desc_noise: float = 0.0, subset=None) -> tuple:
         """Returns (FrameFeatures, visible_global_ids). subset: an optional
-        boolean mask over the scene's points; the others stay unseen."""
+        boolean mask over the scene's points; the others stay unseen.
+
+        The features are filled as the extractor fills them: kp_pos is the
+        camera's projection (with the pixel noise), kp_pos_un its
+        undistortion (on a pinhole the same pixels; on Kannala-Brandt
+        kb8_undistort_f64) and kp_out marks a keypoint whose undistorted
+        position leaves the image (1 px border, PPGExtractor.cpp:141-146)."""
         from .frontend.extractor import FrameFeatures
 
         Xc = self.points @ Rcw.T + tcw
-        vis = Xc[:, 2] > 0.3
+        vis = self._in_view(Xc)
         with np.errstate(divide="ignore", invalid="ignore"):
             uv = self.cam.project_np(Xc)  # behind the camera: not visible
         if noise > 0:
@@ -148,10 +186,17 @@ class SyntheticScene:
         for eid, (a, b) in enumerate(edges_np.tolist()):
             connected[a].append(eid)
             connected[b].append(eid)
+        if self.cam.is_fisheye:
+            uv_un = kb8_undistort_f64(self.cam, uv_v)
+            w, h = self.cam.width, self.cam.height
+            out = ~((uv_un[:, 0] >= 1) & (uv_un[:, 0] < w - 1)
+                    & (uv_un[:, 1] >= 1) & (uv_un[:, 1] < h - 1))
+        else:
+            uv_un, out = uv_v.copy(), np.zeros(len(ids), bool)
         feats = FrameFeatures(
-            kp_pos=uv_v, kp_pos_un=uv_v.copy(),
+            kp_pos=uv_v, kp_pos_un=uv_un,
             kp_score=np.ones(len(ids), np.float32),
-            kp_out=np.zeros(len(ids), bool), edges=edges_np,
+            kp_out=out, edges=edges_np,
             edge_score=np.full(len(edges_np), 0.5, np.float32),
             colines=col_np, connected=connected, desc=descs)
         return feats, ids
@@ -160,11 +205,18 @@ class SyntheticScene:
 class SyntheticSequence:
     """Body motion simulated at IMU rate with the discrete model the
     preintegration assumes (so the preintegrated deltas are consistent with
-    the frame poses); identity camera-body extrinsics."""
+    the frame poses); identity camera-body extrinsics unless Tbc is given.
+
+    Tbc: the camera's mount (body-from-camera, 4x4). The motion (accel_fn:
+    accelerations in the world, gyro_fn: rates, v0) is then the camera's,
+    which starts at the world origin, and the IMU measures the body's: its
+    rates are Rbc times the camera's, its acceleration the camera's plus
+    that of the lever arm tcb turning with the camera."""
 
     def __init__(self, n_frames=120, fps=20.0, imu_hz=200.0, seed=3,
                  noise_px=0.0, desc_noise=0.02, scene=None, accel_fn=None,
-                 v0=(0.25, 0.0, 0.05), gyro_fn=None, imu_noise=(0.0, 0.0)):
+                 v0=(0.25, 0.0, 0.05), gyro_fn=None, imu_noise=(0.0, 0.0),
+                 Tbc=None):
         from .geometry import so3
         from .imu import GRAVITY_VALUE
 
@@ -180,8 +232,6 @@ class SyntheticSequence:
         t = np.zeros(3, np.float32)
         v = np.float32(v0)
         imu_rng = np.random.RandomState(seed + 991)
-        self.frame_poses = [(R.copy(), t.copy())]   # Twb (R=Rwb, t=twb)
-        self.frame_vels = [v.copy()]
         self.frame_times = [0.0]
         self.imu = []  # rows (ax..az, wx..wz, t)
         if accel_fn is None:
@@ -192,12 +242,29 @@ class SyntheticSequence:
             gyro_fn = lambda tm: np.float32([
                 0.10 * np.sin(0.6 * tm), 0.22 * np.cos(0.5 * tm),
                 0.15 * np.sin(0.8 * tm)])
+        self.Tbc = None if Tbc is None else np.asarray(Tbc, np.float32)
+        if self.Tbc is not None:
+            self.Rbc = self.Tbc[:3, :3].copy()
+            self.tbc = self.Tbc[:3, 3].copy()
+            tcb = (-self.Rbc.T @ self.tbc).astype(np.float32)
+            R = self.Rbc.T.copy()  # Rwb = Rwc Rcb with Rwc = I
+            t = tcb
+            v = (v + np.cross(gyro_fn(0.0), tcb)).astype(np.float32)
+        self.frame_poses = [(R.copy(), t.copy())]   # Twb (R=Rwb, t=twb)
+        self.frame_vels = [v.copy()]
         k = 0
         for _ in range(1, n_frames):
             for _ in range(steps_per_frame):
                 tm = k * dt
                 a_w = accel_fn(tm)
                 w_b = gyro_fn(tm)
+                if self.Tbc is not None:  # w_b above is the camera's rate
+                    alpha = (gyro_fn(tm + 1e-3) - gyro_fn(tm - 1e-3)) / 2e-3
+                    a_w = (a_w + (R @ self.Rbc) @ (
+                        np.cross(alpha, tcb)
+                        + np.cross(w_b, np.cross(w_b, tcb)))).astype(
+                            np.float32)
+                    w_b = (self.Rbc @ w_b).astype(np.float32)
                 a_body = (R.T @ (a_w - g)).astype(np.float32)
                 if imu_noise[0] or imu_noise[1]:
                     a_meas = a_body + imu_rng.randn(3).astype(np.float32) \
@@ -218,10 +285,18 @@ class SyntheticSequence:
         self.imu = np.stack(self.imu)
         self.n_frames = n_frames
 
-    def frame_tcw(self, i):
+    def frame_twc(self, i):
+        """Camera i's pose in the world, (Rwc, twc)."""
         Rwb, twb = self.frame_poses[i]
-        Rcw = Rwb.T  # identity extrinsics: camera == body
-        return Rcw, (-Rcw @ twb).astype(np.float32)
+        if self.Tbc is None:  # identity extrinsics: camera == body
+            return Rwb, twb
+        return ((Rwb @ self.Rbc).astype(np.float32),
+                (Rwb @ self.tbc + twb).astype(np.float32))
+
+    def frame_tcw(self, i):
+        Rwc, twc = self.frame_twc(i)
+        Rcw = Rwc.T
+        return Rcw, (-Rcw @ twc).astype(np.float32)
 
     def imu_between(self, t0, t1):
         m = self.imu
@@ -271,13 +346,13 @@ class SyntheticExtractor:
 
 
 def make_ring_scene(n_points=1200, seed=11, r_in=7.0, r_out=10.0,
-                    center=(3.0, 0.0, 0.0)):
+                    center=(3.0, 0.0, 0.0), cam=CAM):
     """Annulus of landmarks around the loop circle's center: each camera
     heading sees only its local arc, so opposite sides of the loop share no
     landmarks (the covisibility graph cannot silently bridge the loop).
-    Copy of tests/synthetic_sequence.py's."""
+    Copy of tests/synthetic_sequence.py's, seen through `cam`."""
     rng = np.random.RandomState(seed)
-    scene = SyntheticScene(n_points=24, seed=seed)  # reuse line machinery
+    scene = SyntheticScene(n_points=24, seed=seed, cam=cam)  # line machinery
     phi = rng.uniform(0, 2 * np.pi, n_points)
     rr = rng.uniform(r_in, r_out, n_points)
     y = rng.uniform(-2.0, 2.5, n_points)
@@ -295,7 +370,8 @@ def make_ring_scene(n_points=1200, seed=11, r_in=7.0, r_out=10.0,
     return scene
 
 
-def make_loop_sequence(n_frames=240, fps=20.0, noise_px=0.5, seed=11):
+def make_loop_sequence(n_frames=240, fps=20.0, noise_px=0.5, seed=11,
+                       cam=CAM, Tbc=None, overrun=0):
     """Closed circular trajectory with tangent heading (copy of
     tests/synthetic_sequence.py's):
 
@@ -306,7 +382,13 @@ def make_loop_sequence(n_frames=240, fps=20.0, noise_px=0.5, seed=11):
     rate would leave metric scale unobservable to the IMU). Yaw drifts
     monocular-inertially; start and far side share NO landmarks, so on
     return the drift must be absorbed by loop closure. Closes exactly at
-    t = T."""
+    t = T. The trajectory is the camera's, seen through `cam` and mounted
+    by `Tbc` (SyntheticSequence). A fisheye's start and far-side views
+    still share no landmark: each sees only points 0.3 m or more in front
+    of it, and they face opposite ways across the loop's center.
+
+    overrun: frames past the closure, along the same circle, so the camera
+    sees the start's views once more; n_frames sets the speed either way."""
     T = (n_frames - 1) / fps
     w = 2 * np.pi / T
     Rc = 3.0
@@ -332,11 +414,11 @@ def make_loop_sequence(n_frames=240, fps=20.0, noise_px=0.5, seed=11):
     def gyro(tm):
         return np.float32([0.0, dtheta(tm), 0.0])
 
-    scene = make_ring_scene(seed=seed, center=(Rc, 0.0, 0.0))
+    scene = make_ring_scene(seed=seed, center=(Rc, 0.0, 0.0), cam=cam)
     return SyntheticSequence(
-        n_frames=n_frames, fps=fps, noise_px=noise_px, seed=seed,
+        n_frames=n_frames + overrun, fps=fps, noise_px=noise_px, seed=seed,
         scene=scene, accel_fn=accel, gyro_fn=gyro,
-        v0=(0.0, 0.15 * 1.3, Rc * dtheta(0.0)))
+        v0=(0.0, 0.15 * 1.3, Rc * dtheta(0.0)), Tbc=Tbc)
 
 
 # ---------------------------------------------------------------------------
@@ -759,7 +841,7 @@ def imu_links(seq, times):
 
 
 def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
-              colines=False, vocabulary=None):
+              colines=False, vocabulary=None, Tbc=None):
     """A map of keyframes at `poses` observing `points` through `views`,
     with the perturbation `pert` applied to KFs 2.. and all points.
 
@@ -769,9 +851,9 @@ def build_map(pkg, poses, views, points, pert, times, imu=None, keep=None,
     boolean masks over the view's keypoints that become observations (all
     when None); colines: create the map colines of every KF's colinear
     triplets (Map.create_map_colines); vocabulary: the map's, indexing
-    every KF's BoW vector. Returns (map, keyframes, {global id:
-    MapPoint})."""
-    rig = pkg.wm.Rig(pkg.cam)
+    every KF's BoW vector; Tbc: the rig's camera mount (identity when
+    None). Returns (map, keyframes, {global id: MapPoint})."""
+    rig = pkg.wm.Rig(pkg.cam, Tbc)
     wm = pkg.wm.Map(rig, vocabulary=vocabulary)
     kfs, id_to_mp, prev = [], {}, None
     for k, ((Rcw, tcw), (feats, ids)) in enumerate(zip(poses, views)):

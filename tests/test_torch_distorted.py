@@ -106,30 +106,18 @@ def _undistorted_pixels(cam: CameraModel, d: np.ndarray) -> np.ndarray:
     """The extractor's undistortion of distorted pixels, in f64: radtan by
     cv::undistortPoints' 5 compensation steps, KB8 by 10 Newton steps on
     theta (KannalaBrandt8.cpp:62-91); f32 out."""
+    if cam.is_fisheye:
+        return testing.kb8_undistort_f64(cam, d)
     px = (d[:, 0].astype(np.float64) - cam.cx) / cam.fx
     py = (d[:, 1].astype(np.float64) - cam.cy) / cam.fy
-    if cam.is_fisheye:
-        k1, k2, k3, k4 = cam.dist
-        theta_d = np.minimum(np.hypot(px, py), np.pi / 2)
-        theta = theta_d.copy()
-        for _ in range(10):
-            t2 = theta * theta
-            f = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
-            df = 1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3
-                                                         + t2 * 9 * k4)))
-            theta = theta - (f - theta_d) / df
-        s = np.where(theta_d > 1e-8, np.tan(theta) / np.maximum(theta_d,
-                                                                1e-8), 1.0)
-        x, y = px * s, py * s
-    else:
-        k1, k2, p1, p2 = cam.dist
-        x, y = px, py
-        for _ in range(5):
-            r2 = x * x + y * y
-            icdist = 1.0 / (1.0 + k1 * r2 + k2 * r2 * r2)
-            dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
-            dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
-            x, y = (px - dx) * icdist, (py - dy) * icdist
+    k1, k2, p1, p2 = cam.dist
+    x, y = px, py
+    for _ in range(5):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + k1 * r2 + k2 * r2 * r2)
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (px - dx) * icdist, (py - dy) * icdist
     return np.stack([cam.fx * x + cam.cx, cam.fy * y + cam.cy],
                     1).astype(np.float32)
 
