@@ -1,0 +1,9 @@
+"""device_idle: the share of the traced window in which no operation ran
+on the device: 100 - the union of the CUDA activity's intervals over all
+streams, over the window (%)."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
