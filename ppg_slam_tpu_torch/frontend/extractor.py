@@ -50,6 +50,7 @@ from ..ops.heatmap import refine_heatmap
 from ..ops.nms import MAX_KEYPOINTS, nms_keypoints
 from ..ops.pairs import candidate_geometry, probe_and_select, validate_candidates
 from ..ops.sampling import remap_bilinear
+from ..utils import profiler
 from .graph_build import finalize_graph, remap_np
 
 MIN_KP_FOR_DESC = 10  # reference quirk: < 10 keypoints -> zero descriptors
@@ -112,7 +113,8 @@ class _Handle:
 
     def host_outputs(self) -> List[Dict[str, np.ndarray]]:
         if self._event is not None:
-            self._event.synchronize()
+            with profiler.timer("frontend.sync"):
+                self._event.synchronize()
             # the device-resident descriptors may come from the extractor's
             # stream: order the consumer's stream after them, and tell the
             # caching allocator that stream uses them
@@ -124,8 +126,10 @@ class _Handle:
         return [{k: v.numpy() for k, v in h.items()} for h in self._host]
 
     def result(self) -> Union["FrameFeatures", List["FrameFeatures"]]:
-        feats = [self._ex._finish(a, desc_dev=d)
-                 for a, d in zip(self.host_outputs(), self._desc_devs)]
+        feats = []
+        for a, d in zip(self.host_outputs(), self._desc_devs):
+            with profiler.timer("frontend.finish"):
+                feats.append(self._ex._finish(a, desc_dev=d))
         return feats[0] if self._single else feats
 
 

@@ -22,6 +22,7 @@ from typing import Deque, List, Tuple
 
 import numpy as np
 
+from ..utils import profiler
 from .extractor import FrameFeatures, PPGExtractor
 
 
@@ -57,7 +58,9 @@ class FramePrefetcher:
         else:
             imgs = self._staged[:self.batch]
             del self._staged[:self.batch]
-        self._inflight.append((self.ex.extract_batch_async(imgs), n_real))
+        with profiler.timer("frontend.dispatch"):
+            handle = self.ex.extract_batch_async(imgs)
+        self._inflight.append((handle, n_real))
         self.n_dispatches += 1
 
     def feed(self, image: np.ndarray) -> None:
@@ -70,12 +73,14 @@ class FramePrefetcher:
 
     def get(self) -> FrameFeatures:
         """Next frame's features, in feed order (blocks on the device)."""
-        while not self._ready:
-            if not self._inflight:
-                self._dispatch(flush=True)
+        with profiler.timer("frontend.get"):
+            while not self._ready:
                 if not self._inflight:
-                    raise RuntimeError("prefetcher is empty — feed() first")
-            handle, n_real = self._inflight.popleft()
-            self._ready.extend(handle.result()[:n_real])
-            self._dispatch()  # keep the window full
-        return self._ready.popleft()
+                    self._dispatch(flush=True)
+                    if not self._inflight:
+                        raise RuntimeError(
+                            "prefetcher is empty — feed() first")
+                handle, n_real = self._inflight.popleft()
+                self._ready.extend(handle.result()[:n_real])
+                self._dispatch()  # keep the window full
+            return self._ready.popleft()

@@ -31,7 +31,6 @@ from ..ops.device_match import (
     gated_match_packed,
     unpack_match,
 )
-from ..utils import profiler
 
 
 class _SparseRow:
@@ -150,7 +149,6 @@ class DeviceMatcher:
                 if mp.mnId in self._slot_of]
         if not live:
             return GatedRows({}, 0, 0)
-        profiler.count("device_dispatches")
         m = len(live)
         bank_idx = np.asarray([self._slot_of[q[0].mnId] for q in live],
                               np.int64)

@@ -223,7 +223,6 @@ class Tracking:
         from ..utils import profiler
 
         if feats is None:
-            profiler.count("device_dispatches")
             with profiler.timer("tracking.extract"):
                 feats = self.extractor.extract(image)
         frame = Frame(feats, timestamp, self.rig)
@@ -814,7 +813,6 @@ class Tracking:
     def _run_pose_optimization(self, frame: Frame) -> int:
         from ..utils import profiler
 
-        profiler.count("device_dispatches")
         with profiler.timer("tracking.pose_opt"):
             return self._run_pose_optimization_impl(frame)
 
@@ -909,8 +907,6 @@ class Tracking:
         preint = PreintData(*dev[10:23])
         prior = Prior15(*dev[23:29], valid=dev[35])
         X, uv, Rcb, tcb, valid, close = dev[29:35]
-        from ..utils import profiler as _prof
-        _prof.count("device_dispatches")
         c, inlier, n_in, new_prior = pose_inertial_optimization(
             curr, prev, preint, prior, X, uv, valid, close, Rcb, tcb,
             self.rig.cam, fix_prev=fix_prev)
