@@ -252,8 +252,12 @@ def coline_residual(d1, d2, d3, X1, X2, X3):
 
 
 def _gravity(like):
-    return torch.tensor([0.0, 0.0, -GRAVITY_VALUE], dtype=like.dtype,
-                        device=like.device)
+    """(0, 0, -g) made on like's device: a host tensor copied there would
+    wait for the copy (a sync each call) and cannot be captured in a CUDA
+    graph."""
+    g = like.new_zeros(3)
+    g[2:].fill_(-GRAVITY_VALUE)
+    return g
 
 
 def inertial_residual(d1, d2, R1, t1, v1, bg1, ba1, R2, t2, v2,

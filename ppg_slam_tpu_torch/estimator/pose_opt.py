@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from ..geometry import so3
 from ..geometry.cameras import CameraModel
@@ -167,10 +168,11 @@ def _mono_batch(R, t, X, uv, Rcb, tcb, cam, want_jac: bool):
     return r, Xc[:, 2], torch.cat([-(JpR @ so3.hat(Xb)), JpR], dim=-1)
 
 
-def _sqrtm_psd(H):
-    """Symmetric PSD square root via eigendecomposition (for whitening)."""
+def _sqrtm_psd(H, cap=None):
+    """Symmetric PSD square root via eigendecomposition (for whitening),
+    the spectrum clamped to [0, cap]."""
     w, V = torch.linalg.eigh(0.5 * (H + H.T))
-    return (V * torch.sqrt(torch.clamp(w, min=0.0))[None, :]) @ V.T
+    return (V * torch.sqrt(torch.clamp(w, 0.0, cap))[None, :]) @ V.T
 
 
 def _jacobi_solve(H, g):
@@ -197,25 +199,30 @@ def marginalize_schur(H, keep_start: int):
     return c - b.T @ a_pinv @ b
 
 
-def pose_inertial_optimization(
-    curr: FrameVIState, prev: FrameVIState, preint: PreintData,
-    prior: Prior15, X, uv, valid, close, Rcb, tcb, cam: CameraModel,
-    fix_prev: bool = False, rec_init: bool = False,
-):
-    """Returns (curr', inlier mask, n_inliers, new Prior15 for curr').
+def _prior_sqrt(prior: Prior15):
+    """The prior's whitening square root, its information spectrum capped at
+    1e7 (sigma floor 3e-4): the KF-anchored marginal inherits ~1/preint-cov
+    information, which a f32 GN cannot mix with ~1e2-scale vision blocks.
+    The capped matrix is never formed: its square root comes from the same
+    eigendecomposition. The eigh reads its status on the host (a sync).
 
-    fix_prev=True reproduces PoseInertialOptimizationLastKeyFrame (previous
-    state fixed, no prior edge); otherwise LastFrame (prev free + 15-D prior).
-    """
-    profiler.count_device("pose_inertial_optimization", X)
+    An invalid prior (LastKeyFrame's zeros) gives exactly 0, its eigh run on
+    the identity: CUDA's eigh of an all-zero matrix returned finite and
+    then NaN eigenvalues on successive calls with the same input on the
+    H100, with no error, and NaN x 0 is NaN."""
+    eye = torch.eye(DOF, dtype=prior.H.dtype, device=prior.H.device)
+    sq = _sqrtm_psd(torch.where(prior.valid, prior.H, eye), cap=1e7)
+    return torch.where(prior.valid, sq, 0.0)
+
+
+def _pose_inertial_gn(curr: FrameVIState, prev: FrameVIState,
+                      preint: PreintData, prior: Prior15, sq_prior, X, uv,
+                      valid, close, Rcb, tcb, cam: CameraModel,
+                      fix_prev: bool, rec_init: bool):
+    """The 4 x 10 GN iterations, the inlier classification, the recovery
+    pass and the 30x30 H at the final estimate: (curr', inlier, n_inliers,
+    H30). Issues no host sync, so a CUDA graph can capture it."""
     dtype, dev = X.dtype, X.device
-
-    # cap the prior information spectrum at 1e7 (sigma floor 3e-4): the
-    # KF-anchored marginal inherits ~1/preint-cov information, which a f32
-    # GN cannot mix with ~1e2-scale vision blocks
-    pw, pV = torch.linalg.eigh(0.5 * (prior.H + prior.H.T))
-    prior_H = (pV * torch.clamp(pw, 0.0, 1e7)[None, :]) @ pV.T
-    sq_prior = _sqrtm_psd(prior_H) * prior.valid
 
     def stacked(c: FrameVIState, p: FrameVIState):
         """Whitened [inertial(9), gyro walk(3), acc walk(3), prior(15)] and
@@ -297,13 +304,151 @@ def pose_inertial_optimization(
     _, _, Jm = _mono_batch(c.R, c.t, X, uv, Rcb, tcb, cam, want_jac=True)
     H30[DOF:DOF + 6, DOF:DOF + 6] += torch.einsum(
         "o,odi,odj->ij", inlier.to(dtype), Jm, Jm)
+    return c, inlier, n_in, H30
 
-    # PSD-project the marginal (the reference does so in the
-    # ConstraintPoseImu ctor, G2oEdge.h:350-403): Schur complements of
-    # near-singular f32 systems come out slightly indefinite
+
+def _marginal_prior(c: FrameVIState, H30) -> Prior15:
+    """The new 15-D prior of curr': the previous state Schur-complemented
+    out of H30, then PSD-projected (the reference does so in the
+    ConstraintPoseImu ctor, G2oEdge.h:350-403): Schur complements of
+    near-singular f32 systems come out slightly indefinite. Its svd and
+    eigh read their status on the host (a sync each)."""
     H_new = marginalize_schur(H30, DOF)
     w, V = torch.linalg.eigh(0.5 * (H_new + H_new.T))
     H_new = (V * torch.clamp(w, min=0.0)[None, :]) @ V.T
-    new_prior = Prior15(R=c.R, t=c.t, v=c.v, bg=c.bg, ba=c.ba, H=H_new,
-                        valid=torch.ones((), dtype=torch.bool, device=dev))
-    return c, inlier, n_in, new_prior
+    return Prior15(R=c.R, t=c.t, v=c.v, bg=c.bg, ba=c.ba, H=H_new,
+                   valid=torch.ones((), dtype=torch.bool, device=H30.device))
+
+
+def pose_inertial_optimization(
+    curr: FrameVIState, prev: FrameVIState, preint: PreintData,
+    prior: Prior15, X, uv, valid, close, Rcb, tcb, cam: CameraModel,
+    fix_prev: bool = False, rec_init: bool = False,
+):
+    """Returns (curr', inlier mask, n_inliers, new Prior15 for curr').
+
+    fix_prev=True reproduces PoseInertialOptimizationLastKeyFrame (previous
+    state fixed, no prior edge); otherwise LastFrame (prev free + 15-D prior).
+    """
+    profiler.count_device("pose_inertial_optimization", X)
+    c, inlier, n_in, H30 = _pose_inertial_gn(
+        curr, prev, preint, prior, _prior_sqrt(prior), X, uv, valid, close,
+        Rcb, tcb, cam, fix_prev, rec_init)
+    return c, inlier, n_in, _marginal_prior(c, H30)
+
+
+# ---------------------------------------------------------------------------
+# pose_inertial_optimization replayed from a CUDA graph (the tracking path)
+# ---------------------------------------------------------------------------
+
+def pad_observations(X, uv, valid, close, capacity: int):
+    """Host observation arrays (n rows) padded to `capacity` rows. A padded
+    row copies row 0, so it is finite wherever the real rows are (a weight
+    of 0 times a NaN Jacobian would still poison H), and has valid and
+    close False: it weighs 0 in every sum and is never an inlier."""
+    n = len(X)
+    if n > capacity:
+        raise ValueError(f"{n} observations over the capacity {capacity}")
+    rows = np.zeros(capacity, np.int64)
+    rows[:n] = np.arange(n)
+    real = np.arange(capacity) < n
+    return (X[rows], uv[rows], np.asarray(valid, bool)[rows] & real,
+            np.asarray(close, bool)[rows] & real)
+
+
+class PoseInertialReplay:
+    """pose_inertial_optimization on a CUDA device with its sync-free middle
+    (_pose_inertial_gn: ~26k small launches at ~25 us of host issue each)
+    replayed from a CUDA graph. The prior's eigh before it and the
+    marginalization's svd and eigh after it read their status on the host,
+    so they run eagerly on either side of the replay.
+
+    One graph per (fix_prev, rec_init), captured at its first call into the
+    instance's own memory pool; the graphs read static input buffers that
+    each call fills with one host-to-device copy, observations padded to
+    `capacity` rows (pad_observations). Calls with more rows do not fit:
+    the caller runs pose_inertial_optimization itself."""
+
+    def __init__(self, cam: CameraModel, capacity: int, device):
+        self.cam, self.capacity = cam, capacity
+        self.device = torch.device(device)
+        C = capacity
+        shapes = ([(3, 3), (3,), (3,), (3,), (3,)] * 2             # curr, prev
+                  + [(3, 3), (3,), (3,)] + [(3, 3)] * 5            # preint
+                  + [(6,), (9, 9), (3, 3), (3, 3), ()]
+                  + [(3, 3), (3,), (3,), (3,), (3,), (DOF, DOF)]   # prior
+                  + [(C, 3), (C, 2), (3, 3), (3,)]                 # X uv Rcb tcb
+                  + [(C,), (C,), ()])               # valid close prior_valid
+        sizes = [int(np.prod(s)) for s in shapes]
+        self._pinned = torch.empty(sum(sizes), dtype=torch.float32,
+                                   pin_memory=True)
+        self._flat = torch.empty(sum(sizes), dtype=torch.float32,
+                                 device=self.device)
+        host = self._pinned.numpy()
+        self._host, self._dev, k = [], [], 0
+        for shape, size in zip(shapes, sizes):
+            self._host.append(host[k:k + size].reshape(shape))
+            self._dev.append(self._flat[k:k + size].view(shape))
+            k += size
+        self._sq_prior = torch.empty((DOF, DOF), dtype=torch.float32,
+                                     device=self.device)
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(self.device)
+        self._graphs = {}  # (fix_prev, rec_init) -> (graph, its outputs)
+
+    def _prior(self) -> Prior15:
+        d = self._dev
+        return Prior15(*d[23:29], valid=d[35] > 0.5)
+
+    def _gn(self, fix_prev: bool, rec_init: bool):
+        d = self._dev
+        return _pose_inertial_gn(
+            FrameVIState(*d[0:5]), FrameVIState(*d[5:10]),
+            PreintData(*d[10:23]), self._prior(), self._sq_prior, d[29],
+            d[30], d[33] > 0.5, d[34] > 0.5, d[31], d[32], self.cam,
+            fix_prev, rec_init)
+
+    def _capture(self, key):
+        with profiler.timer("pose_inertial.capture"):
+            # warm up on the capture stream first (cuBLAS and cuSOLVER
+            # create their handles and workspaces lazily)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                for _ in range(2):
+                    self._gn(*key)
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the threaded GBA and the prefetcher may touch
+            # CUDA from other threads meanwhile
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = self._gn(*key)
+            self._graphs[key] = (graph, out)
+
+    def __call__(self, curr, prev, preint, prior, prior_valid, X, uv, valid,
+                 close, Rcb, tcb, fix_prev: bool, rec_init: bool = False):
+        """pose_inertial_optimization's (curr', inlier, n_inliers, new
+        Prior15) from host arrays: curr and prev the 5 of FrameVIState,
+        preint the 13 of PreintData, prior the 6 of Prior15 before valid;
+        X, uv, valid and close n <= capacity rows. The outputs are the
+        graph's buffers, valid until the next call; inlier has `capacity`
+        rows."""
+        profiler.count_device("pose_inertial_optimization", self._flat)
+        X, uv, valid, close = pad_observations(X, uv, valid, close,
+                                               self.capacity)
+        for dst, a in zip(self._host, [*curr, *prev, *preint, *prior, X, uv,
+                                       Rcb, tcb, valid, close, prior_valid]):
+            dst[...] = a
+        with torch.cuda.device(self.device):
+            # the eigh below waits for this copy, so the next call may
+            # refill the pinned buffer
+            self._flat.copy_(self._pinned, non_blocking=True)
+            self._sq_prior.copy_(_prior_sqrt(self._prior()))
+            key = (bool(fix_prev), bool(rec_init))
+            if key not in self._graphs:
+                self._capture(key)
+            graph, (c, inlier, n_in, H30) = self._graphs[key]
+            with profiler.timer("pose_inertial.replay"):
+                graph.replay()
+            return c, inlier, n_in, _marginal_prior(c, H30)

@@ -31,6 +31,7 @@ from ..device import resolve_device
 from ..estimator.ba import _fetch, _upload
 from ..estimator.pose_opt import (
     FrameVIState,
+    PoseInertialReplay,
     PreintData,
     Prior15,
     pose_inertial_optimization,
@@ -165,6 +166,9 @@ class Tracking:
         # device-side gated matching (created lazily on the first frame
         # extracted with desc_transfer="device"; matching/device_match.py)
         self._dev_matcher = None
+        # pose_inertial_optimization's CUDA graphs (created at the first
+        # inertial frame on a CUDA device)
+        self._pose_replay = None
 
     @property
     def state(self) -> int:
@@ -899,17 +903,23 @@ class Tracking:
                   _sqrtm_psd_inv(C[12:15, 12:15]), np.float32(st.dT)]
         curr = state(frame.imu_rotation(), frame.imu_position(),
                      frame.velocity, frame.bias)
-        host = curr + prev + preint + prior + [X, uv, self.rig.Rcb,
-                                               self.rig.tcb]
-        dev = _upload([np.asarray(a, np.float32) for a in host] + [
-            valid, close, np.asarray(prior_valid)], self.device)
-        curr, prev = FrameVIState(*dev[:5]), FrameVIState(*dev[5:10])
-        preint = PreintData(*dev[10:23])
-        prior = Prior15(*dev[23:29], valid=dev[35])
-        X, uv, Rcb, tcb, valid, close = dev[29:35]
-        c, inlier, n_in, new_prior = pose_inertial_optimization(
-            curr, prev, preint, prior, X, uv, valid, close, Rcb, tcb,
-            self.rig.cam, fix_prev=fix_prev)
+        replay = self._pose_inertial_replay(n)
+        if replay is not None:
+            c, inlier, n_in, new_prior = replay(
+                curr, prev, preint, prior, prior_valid, X, uv, valid, close,
+                self.rig.Rcb, self.rig.tcb, fix_prev=fix_prev)
+        else:
+            host = curr + prev + preint + prior + [X, uv, self.rig.Rcb,
+                                                   self.rig.tcb]
+            dev = _upload([np.asarray(a, np.float32) for a in host] + [
+                valid, close, np.asarray(prior_valid)], self.device)
+            curr, prev = FrameVIState(*dev[:5]), FrameVIState(*dev[5:10])
+            preint = PreintData(*dev[10:23])
+            prior = Prior15(*dev[23:29], valid=dev[35])
+            X, uv, Rcb, tcb, valid, close = dev[29:35]
+            c, inlier, n_in, new_prior = pose_inertial_optimization(
+                curr, prev, preint, prior, X, uv, valid, close, Rcb, tcb,
+                self.rig.cam, fix_prev=fix_prev)
         # ONE fetch for everything the host reads below
         R, t, v, bg, ba, inl, n_in, prior_H = _fetch(*c, inlier, n_in,
                                                      new_prior.H)
@@ -920,6 +930,25 @@ class Tracking:
         for k, (i, mp) in enumerate(matched):
             frame.outlier[i] = not inl[k] > 0.5
         return int(n_in)
+
+    def _pose_inertial_replay(self, n: int):
+        """The CUDA-graph replay of pose_inertial_optimization for a call
+        with n observations, or None: on the CPU, and past the capacity, the
+        extractor's keypoint cap (a frame's matches are at most its
+        keypoints), which is counted ("pose_inertial.eager")."""
+        from ..ops.nms import MAX_KEYPOINTS
+        from ..utils import profiler
+
+        if self.device.type != "cuda":
+            return None
+        if self._pose_replay is None:
+            self._pose_replay = PoseInertialReplay(
+                self.rig.cam, getattr(self.extractor, "max_kp",
+                                      MAX_KEYPOINTS), self.device)
+        if n > self._pose_replay.capacity:
+            profiler.count("pose_inertial.eager")
+            return None
+        return self._pose_replay
 
     def track_reference_keyframe(self) -> bool:
         frame = self.current

@@ -787,6 +787,81 @@ def preint_data(p, device):
         sqia=f(sqrtm_psd_inv(C[12:15, 12:15])), dt=f(np.float32(st.dT)))
 
 
+# configs/tumvi.yaml's 512x512 Kannala-Brandt camera
+TUMVI_CAM_KW = dict(fx=190.978477, fy=190.973307, cx=254.931706,
+                    cy=256.897442, dist=(0.003482389402, 0.000715034845,
+                                         -0.002053236141, 0.000202936736),
+                    width=512, height=512)
+
+
+def pose_inertial_case(n_obs: int, fix_prev: bool, seed: int = 0,
+                       cam=None, n_imu: int = 10, outliers: float = 0.1):
+    """Host (numpy) arguments of a tracked frame's pose-inertial call, in
+    PoseInertialReplay's order: a dict of curr, prev (5 arrays each),
+    preint (13), prior (6), prior_valid, X, uv, valid, close, Rcb, tcb.
+    The body moves 0.1 m in 0.05 s (IMU samples of the discrete model the
+    preintegration assumes) and turns 0.05 rad; n_obs points 3-8 m ahead,
+    seen with 0.5 px of noise and an `outliers` share of them 20-60 px
+    off; the current state perturbed. fix_prev: the LastKeyFrame variant's
+    zero, invalid prior."""
+    from .geometry import so3
+    from .geometry.cameras import CAM_FISHEYE, CameraModel
+    from .imu import GRAVITY_VALUE
+    from .imu.preintegration import integrate
+
+    cam = cam or CameraModel(kind=CAM_FISHEYE, **TUMVI_CAM_KW)
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    R0 = f32(so3.exp(f32(rng.randn(3) * 0.1)))
+    t0 = f32(rng.randn(3))
+    v0 = f32([1.8, -0.3, 0.4])
+    w = f32([0.2, 1.0, -0.3])                # rad/s in the body
+    dtm = np.full(n_imu, 0.005, np.float32)
+    dT = float(dtm.sum())
+    a_total = f32(2.0 * (f32([0.06, 0.02, 0.08]) - v0 * dT) / dT ** 2)
+    g = f32([0, 0, -GRAVITY_VALUE])
+    R, v, accs = R0.copy(), v0.copy(), []
+    for k in range(n_imu):
+        accs.append(f32(R.T @ (a_total - g)))
+        v = v + a_total * dtm[k]
+        R = f32(R @ so3.exp(w * dtm[k]))
+    t1 = f32(t0 + v0 * dT + 0.5 * a_total * dT ** 2)
+    st = integrate(torch.from_numpy(np.stack(accs)),
+                   torch.from_numpy(np.tile(w, (n_imu, 1))),
+                   torch.from_numpy(dtm), torch.ones(n_imu, dtype=torch.bool),
+                   torch.zeros(6), torch.full((6,), 1e-5),
+                   torch.full((6,), 1e-8))
+    preint = [st.dR, st.dV, st.dP, st.JRg, st.JVg, st.JVa, st.JPg, st.JPa]
+    preint = [f32(x) for x in preint] + [
+        np.zeros(6, np.float32), f32(np.eye(9) * 50.0),
+        f32(np.eye(3) * 100.0), f32(np.eye(3) * 100.0), np.float32(dT)]
+    Rcb = f32(so3.exp(f32([0.01, -0.02, 0.015])))
+    tcb = f32([0.02, -0.01, 0.005])
+    # points ahead of the camera at frame 1, into the world
+    Xc = np.stack([rng.uniform(-3, 3, n_obs), rng.uniform(-3, 3, n_obs),
+                   rng.uniform(3, 8, n_obs)], 1)
+    X = f32((Rcb.T @ (Xc - tcb).T).T @ R.T + t1)
+    uv = cam.project(torch.from_numpy(f32(Xc))).numpy()
+    uv = uv + rng.randn(n_obs, 2) * 0.5
+    bad = rng.rand(n_obs) < outliers
+    uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2)) * rng.choice(
+        [-1, 1], (int(bad.sum()), 2))
+    z = np.zeros(3, np.float32)
+    dR = so3.exp(f32([0.01, 0.02, -0.01]))
+    curr = [f32(R @ dR), f32(t1 + f32([0.03, -0.02, 0.04])),
+            f32(v + f32([0.1, 0.0, -0.1])), z, z]
+    prev = [R0, t0, v0, z, z]
+    if fix_prev:
+        prior = [np.eye(3, dtype=np.float32), z, z, z, z,
+                 np.zeros((15, 15), np.float32)]
+    else:
+        prior = [R0, t0, v0, z, z, f32(np.eye(15) * 1e4)]
+    return dict(curr=curr, prev=prev, preint=preint, prior=prior,
+                prior_valid=not fix_prev, X=X, uv=f32(uv),
+                valid=np.ones(n_obs, bool), close=rng.rand(n_obs) < 0.3,
+                Rcb=Rcb, tcb=tcb)
+
+
 # ---------------------------------------------------------------------------
 # world maps built from rendered views (shared by the port's tests, which
 # build the same map in both packages, and by chip_smoke.py's estimator
