@@ -210,9 +210,10 @@ def _prior_sqrt(prior: Prior15):
     the identity: CUDA's eigh of an all-zero matrix returned finite and
     then NaN eigenvalues on successive calls with the same input on the
     H100, with no error, and NaN x 0 is NaN."""
-    eye = torch.eye(DOF, dtype=prior.H.dtype, device=prior.H.device)
-    sq = _sqrtm_psd(torch.where(prior.valid, prior.H, eye), cap=1e7)
-    return torch.where(prior.valid, sq, 0.0)
+    with profiler.timer("pose_inertial.prior_sqrt"):
+        eye = torch.eye(DOF, dtype=prior.H.dtype, device=prior.H.device)
+        sq = _sqrtm_psd(torch.where(prior.valid, prior.H, eye), cap=1e7)
+        return torch.where(prior.valid, sq, 0.0)
 
 
 def _pose_inertial_gn(curr: FrameVIState, prev: FrameVIState,
@@ -313,11 +314,13 @@ def _marginal_prior(c: FrameVIState, H30) -> Prior15:
     ConstraintPoseImu ctor, G2oEdge.h:350-403): Schur complements of
     near-singular f32 systems come out slightly indefinite. Its svd and
     eigh read their status on the host (a sync each)."""
-    H_new = marginalize_schur(H30, DOF)
-    w, V = torch.linalg.eigh(0.5 * (H_new + H_new.T))
-    H_new = (V * torch.clamp(w, min=0.0)[None, :]) @ V.T
-    return Prior15(R=c.R, t=c.t, v=c.v, bg=c.bg, ba=c.ba, H=H_new,
-                   valid=torch.ones((), dtype=torch.bool, device=H30.device))
+    with profiler.timer("pose_inertial.marginal"):
+        H_new = marginalize_schur(H30, DOF)
+        w, V = torch.linalg.eigh(0.5 * (H_new + H_new.T))
+        H_new = (V * torch.clamp(w, min=0.0)[None, :]) @ V.T
+        return Prior15(R=c.R, t=c.t, v=c.v, bg=c.bg, ba=c.ba, H=H_new,
+                       valid=torch.ones((), dtype=torch.bool,
+                                        device=H30.device))
 
 
 def pose_inertial_optimization(

@@ -856,6 +856,8 @@ class Tracking:
             return self._run_pose_inertial_impl(frame, fix_prev)
 
     def _run_pose_inertial_impl(self, frame: Frame, fix_prev: bool) -> int:
+        from ..utils import profiler
+
         matched = [(i, mp) for i, mp in enumerate(frame.map_points)
                    if mp is not None]
         # the exact number of matches (at least one row, invalid when
@@ -923,6 +925,9 @@ class Tracking:
         # ONE fetch for everything the host reads below
         R, t, v, bg, ba, inl, n_in, prior_H = _fetch(*c, inlier, n_in,
                                                      new_prior.H)
+        # a non-finite prior makes the next call's eigh raise
+        profiler.count("pose_inertial.prior_nonfinite",
+                       int(not np.isfinite(prior_H).all()))
         frame.set_imu_pose_velocity(R, t, v)
         frame.bias = np.concatenate([bg, ba])
         frame.has_pose = True
