@@ -17,12 +17,15 @@ observation erasure, MapEdge re-validation, coline outlier culling).
   * whole_map_transform_gain / conformal_scale_refine - the full-objective
     checks behind IMU initialization and scale refinement
 
-Problems are solved at their exact sizes: the reference's pow2 shape
-buckets and slot-major layout are XLA/TPU workarounds. Past 64 keyframes a
-solve whose pose system resolves to PCG takes solve_ba's implicit route
-(IMPLICIT_MIN_KF), as the reference's accelerator route does; the global
-entry points take `mesh=` (a parallel.Mesh) and then solve through
-parallel.solve_ba_sharded, the residual set sharded over its devices.
+Eager solves run at their exact sizes: the reference's slot-major layout
+is an XLA/TPU workaround. Its pow2 shape buckets come back for one reason:
+the local BAs of the mapping thread take a LocalBAReplay, which replays
+their LM iterations on CUDA from a CUDA graph per bucket. Past 64
+keyframes a solve whose pose system resolves to PCG takes solve_ba's
+implicit route (IMPLICIT_MIN_KF), as the reference's accelerator route
+does; the global entry points take `mesh=` (a parallel.Mesh) and then
+solve through parallel.solve_ba_sharded, the residual set sharded over its
+devices.
 
 The local and global BA entry points pass `pose_cg_iters` and `backtrack`
 through to BAOptions; None keeps the reference's backend defaults (PCG(64)
@@ -31,6 +34,7 @@ and backtracking on CUDA, Cholesky without backtracking on the CPU).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Tuple
@@ -38,17 +42,23 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import StaticBuffers, resolve_device
 from ..utils import profiler
 from ..worldmap.elements import MapPoint
 from ..worldmap.frame import KeyFrame, Rig
 from ..worldmap.map import Map
 from .ba_core import (
     _INDEX_FIELDS,
+    MAX_HIST,
     BAOptions,
     BAProblem,
     KFStates,
     _chi2_only,
+    _exit_test,
+    _finish,
+    _lm_iteration,
+    _lm_loop,
+    _obs_residuals,
     empty_problem,
     resolve_pose_cg,
     solve_ba,
@@ -100,24 +110,34 @@ def _fetch(*tensors) -> list:
 
 def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
                   mp_free, rig: Rig, opts: BAOptions, device,
-                  abort_check=None, chunk: int = 2, mesh=None):
+                  abort_check=None, chunk: int = 2, mesh=None, replay=None):
     """solve_ba on `device` from host (numpy) states, points and problem.
-    The name is the reference's; nothing is padded here. The pose system
-    is solved implicitly from IMPLICIT_MIN_KF keyframes on where it
-    resolves to PCG; with `mesh` the solve is solve_ba_sharded's (its
-    lead device is `device`).
+    The pose system is solved implicitly from IMPLICIT_MIN_KF keyframes on
+    where it resolves to PCG; with `mesh` the solve is solve_ba_sharded's
+    (its lead device is `device`). With `replay` (a LocalBAReplay, which
+    the local BAs take), a solve that fits it is replayed from its CUDA
+    graphs instead, padded to its bucket; the states and points returned
+    are then views of the replay's buffers, valid until its next solve.
 
     abort_check: polled between fixed-size chunks of the damped-GN loop,
     the reference's force-stop flag inside g2o (OptimizerLBA.cpp:112-113);
     each chunk resumes the previous one's damping."""
+    implicit = (len(kf_dof) >= IMPLICIT_MIN_KF
+                and resolve_pose_cg(opts.pose_cg_iters, device) > 0)
+    key = None if replay is None else replay.key(
+        len(kf_dof), len(points), prob, rig, opts, implicit, device)
+    if key is not None:
+        with profiler.timer("local_ba.replay"), torch.cuda.device(device):
+            graph = replay.load(key, states, points, prob, kf_dof, mp_free,
+                                rig)
+            return _chunked(lambda s, p, o: graph.run(o), None, None, opts,
+                            abort_check, chunk)
     host = list(states) + [points, np.asarray(kf_dof), np.asarray(mp_free),
                            rig.Rcb, rig.tcb] + list(prob)
     dev = _upload(host, device)
     st = KFStates(*dev[:5])
     pts, dof, free, Rcb, tcb = dev[5:10]
     prob_d = BAProblem(*dev[10:])
-    implicit = (len(kf_dof) >= IMPLICIT_MIN_KF
-                and resolve_pose_cg(opts.pose_cg_iters, device) > 0)
 
     def _solve(s, p, o):
         if mesh is not None:
@@ -128,9 +148,16 @@ def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
         return solve_ba(s, p, prob_d, dof, free, Rcb, tcb, rig.cam, o,
                         implicit=implicit)
 
+    return _chunked(_solve, st, pts, opts, abort_check, chunk)
+
+
+def _chunked(solve, st, pts, opts: BAOptions, abort_check, chunk: int):
+    """solve(st, pts, opts) at once, or where abort_check is given, in
+    chunks of `chunk` iterations, each resuming the previous one's damping
+    and states, abort_check polled between them."""
     if abort_check is None or opts.iters <= chunk:
         with profiler.timer("ba.dispatch"):
-            return _solve(st, pts, opts)
+            return solve(st, pts, opts)
     done = 0
     lam = opts.lambda0
     info = None
@@ -139,7 +166,7 @@ def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
     stalled_chunks = 0
     syncs = 0
     while done < opts.iters:
-        st, pts, info = _solve(st, pts, dataclasses.replace(
+        st, pts, info = solve(st, pts, dataclasses.replace(
             opts, iters=chunk, lambda0=lam))
         lam = info["lam"]
         if initial is None:
@@ -164,6 +191,233 @@ def _padded_solve(states: KFStates, points, prob: BAProblem, kf_dof,
     info["chi2_hist"] = info["chi2_hist"].clone()
     info["chi2_hist"][0] = initial
     return st, pts, info
+
+
+# ---------------------------------------------------------------------------
+# local BA replayed from CUDA graphs (the mapping path)
+# ---------------------------------------------------------------------------
+
+# The reference pads every accelerator solve to power-of-two buckets
+# (ppg_slam_tpu/estimator/ba.py _bucket_nm, _kf_mp_floors, _obs_floor,
+# _pad_problem), with these floors: keyframes, map points, then the rows of
+# each residual family (observations, colines, inertial links, 15-D priors,
+# bias priors). A graph holds fixed shapes, so a LocalBAReplay pads to them.
+BUCKET_FLOORS = (16, 512, 4096, 256, 64, 1, 4)
+# the largest bucket a LocalBAReplay captures; a larger solve runs eagerly
+BUCKET_CAPS = (256, 16384, 131072, 16384, 256, 64, 64)
+# the graphs a LocalBAReplay keeps, the least recently used evicted past it
+MAX_GRAPHS = 8
+# the bucket (an index into the sizes) of each BAProblem field, by prefix
+_FAMILY = {"r": 2, "c": 3, "i": 4, "rw": 4, "p": 5, "bp": 6}
+
+
+def _pow2(n: int, lo: int) -> int:
+    return max(lo, 1 << (n - 1).bit_length())
+
+
+def bucket_sizes(n_kf: int, n_mp: int, prob: BAProblem) -> tuple:
+    """(keyframes, map points, observations, colines, links, priors, bias
+    priors) of a solve, each a power of two at or above its BUCKET_FLOORS
+    entry; an empty residual family stays empty."""
+    sizes = (n_kf, n_mp, len(prob.r_kf), len(prob.c_idx), len(prob.i_kf1),
+             len(prob.p_kf), len(prob.bp_kf))
+    return tuple(_pow2(k, lo) if k else 0
+                 for k, lo in zip(sizes, BUCKET_FLOORS))
+
+
+def pad_inputs(states: KFStates, points, prob: BAProblem, kf_dof, mp_free,
+               sizes: tuple, out=None) -> list:
+    """The host (numpy) inputs of a solve padded to `sizes`
+    (bucket_sizes), the reference's padding: a padded keyframe is an
+    identity state with no free DOF, a padded map point sits fixed at
+    (0, 0, 1), and a padded residual row is ba_core.empty_problem's, not
+    valid (so no observation sees a padded point). Returns [R, t, v, bg,
+    ba, points, kf_dof, mp_free, *prob], written into `out` (arrays of
+    those shapes) where given."""
+    N, M = sizes[:2]
+    pad_row = [np.asarray(x[0]) for x in empty_problem(1, 1, 1, 1, 1)]
+    src = [*states, points, kf_dof, mp_free, *prob]
+    fills = [np.eye(3), 0.0, 0.0, 0.0, 0.0, (0.0, 0.0, 1.0), False,
+             False] + pad_row
+    rows = [N] * 5 + [M, N, M] + [sizes[_FAMILY[f.split("_")[0]]]
+                                  for f in BAProblem._fields]
+    if out is None:
+        out = [np.empty((r,) + np.shape(a)[1:], np.asarray(a).dtype)
+               for r, a in zip(rows, src)]
+    for dst, a, fill in zip(out, src, fills):
+        k = len(a)
+        dst[:k] = a
+        dst[k:] = fill
+    return out
+
+
+class _IterationGraph:
+    """One bucket of a LocalBAReplay: the padded inputs as static device
+    buffers, the LM loop's state (damping, last chi2, chi2 history and its
+    slot) on the device, and the CUDA graph of one iteration of solve_ba
+    (_lm_iteration with sync_free) that updates them in place."""
+
+    def __init__(self, key, device):
+        self.sizes, self.implicit, self.cam, self.opts = key
+        N, M = self.sizes[:2]
+        tmpl = empty_problem()
+        specs = ([((N, 3, 3), torch.float32)] + [((N, 3), torch.float32)] * 4
+                 + [((M, 3), torch.float32), ((N, 15), torch.bool),
+                    ((M,), torch.bool)]
+                 + [((self.sizes[_FAMILY[f.split("_")[0]]],) + x.shape[1:],
+                     x.dtype) for f, x in zip(BAProblem._fields, tmpl)]
+                 + [((3, 3), torch.float32), ((3,), torch.float32)])
+        self.buf = StaticBuffers(specs, device)
+        d = self.buf.dev
+        self.states, self.points = KFStates(*d[:5]), d[5]
+        self.kf_dof, self.mp_free = d[6], d[7]
+        self.prob = BAProblem(*d[8:-2])
+        self.Rcb, self.tcb = d[-2:]
+        f32 = dict(dtype=torch.float32, device=device)
+        self.lam = torch.zeros((), **f32)
+        self.last = torch.zeros((), **f32)
+        self.hist = torch.zeros(MAX_HIST, **f32)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=device)
+        self.graph = self.flags = None
+
+    def fill(self, states, points, prob, kf_dof, mp_free, rig) -> None:
+        """Pad a solve's host inputs into the buffers and upload them."""
+        self.n_kf, self.n_mp, self.n_obs = (len(kf_dof), len(points),
+                                            len(prob.r_kf))
+        h = self.buf.host
+        pad_inputs(states, points, prob, kf_dof, mp_free, self.sizes,
+                   out=h[:-2])
+        h[-2][...] = rig.Rcb
+        h[-1][...] = rig.tcb
+        # the solve's host reads come after this copy on the same stream,
+        # so the next fill of the pinned arrays finds it done
+        self.buf.upload()
+
+    def iteration(self, commit: bool):
+        """One LM iteration on the buffers: its exit-test flags; with
+        commit, the iteration's states, points, damping and chi2 written
+        back into the buffers and its chi2 into the history."""
+        solve_iter, _ = _lm_iteration(
+            self.states, self.points, self.prob, self.kf_dof, self.mp_free,
+            self.Rcb, self.tcb, self.cam, self.opts, self.implicit, None,
+            [0], sync_free=True)
+        st, pts, lam, chi2_acc, chi2_pre = solve_iter(self.states,
+                                                      self.points, self.lam)
+        flags = _exit_test(chi2_acc, self.last, self.opts.tol)
+        if commit:
+            self.hist.index_copy_(0, self.slot, chi2_pre[None])
+            self.slot.add_(1).clamp_(max=MAX_HIST - 1)
+            for dst, src in zip((*self.states, self.points, self.lam,
+                                 self.last), (*st, pts, lam, chi2_acc)):
+                dst.copy_(src)
+        return flags
+
+    def run(self, opts: BAOptions):
+        """solve_ba's loop from the states in the buffers, its damping
+        opts.lambda0 (a float or a device scalar), one replay and one host
+        read an iteration: (states, points, info) as solve_ba returns them,
+        the states and points views of the buffers at the true sizes."""
+        profiler.count_device("solve_ba", self.points)
+        if self.implicit:
+            profiler.count_device("solve_ba_implicit", self.points)
+        if torch.is_tensor(opts.lambda0):
+            self.lam.copy_(opts.lambda0)
+        else:
+            self.lam.fill_(opts.lambda0)
+        self.last.fill_(torch.inf)
+        self.slot.zero_()
+
+        def step(it):
+            self.graph.replay()
+            return self.flags.tolist()
+
+        it, accepts = _lm_loop(step, opts)
+        st = KFStates(*(x[:self.n_kf] for x in self.states))
+        pts = self.points[:self.n_mp]
+        k = self.n_obs
+        obs = _obs_residuals(
+            st, pts, self.prob._replace(r_kf=self.prob.r_kf[:k],
+                                        r_mp=self.prob.r_mp[:k],
+                                        r_uv=self.prob.r_uv[:k]),
+            self.cam, self.Rcb, self.tcb)
+        return st, pts, _finish(it, accepts, self.hist, self.last.clone(),
+                                self.lam.clone(), *obs, it)
+
+
+class LocalBAReplay:
+    """The LM iterations of the local BAs on a CUDA device replayed from
+    CUDA graphs, one replay an iteration: an eager iteration issues ~2.2k
+    small launches at ~25 us of host issue each, a replayed one a single
+    graph launch.
+
+    A solve is padded to its bucket (bucket_sizes, pad_inputs) and filled
+    into that bucket's static buffers by one host-to-device copy a dtype.
+    One graph per key (the bucket sizes, the route dense or implicit, the
+    camera, the solver options but iters and lambda0), captured at its
+    first solve into the instance's own memory pool on its own stream, in
+    thread-local capture mode (the threaded GBA and the prefetcher launch
+    eagerly from other threads meanwhile); at most MAX_GRAPHS kept, the
+    least recently used evicted. The iteration is solve_ba's with
+    sync_free (the same values), and the host loop around the replays is
+    solve_ba's: one read of the exit test an iteration. A solve past
+    BUCKET_CAPS does not fit (key() is None): the caller solves eagerly."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pool = torch.cuda.graph_pool_handle()
+        self._stream = torch.cuda.Stream(self.device)
+        self._graphs = collections.OrderedDict()  # key -> _IterationGraph
+        self._warm = False
+
+    def key(self, n_kf: int, n_mp: int, prob: BAProblem, rig: Rig,
+            opts: BAOptions, implicit: bool, device):
+        """The graph key of a solve on `device`, or None where it does not
+        fit: another device, or a bucket past BUCKET_CAPS."""
+        sizes = bucket_sizes(n_kf, n_mp, prob)
+        if torch.device(device) != self.device or any(
+                k > cap for k, cap in zip(sizes, BUCKET_CAPS)):
+            return None
+        return (sizes, bool(implicit), rig.cam,
+                dataclasses.replace(opts, iters=0, lambda0=0.0))
+
+    def load(self, key, states, points, prob, kf_dof, mp_free,
+             rig) -> _IterationGraph:
+        """The key's graph with the solve's inputs in its buffers, captured
+        at its first use."""
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            graph = _IterationGraph(key, self.device)
+        self._graphs[key] = graph
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        graph.fill(states, points, prob, kf_dof, mp_free, rig)
+        if graph.graph is None:
+            self._capture(graph)
+        return graph
+
+    def _capture(self, graph: _IterationGraph) -> None:
+        with profiler.timer("local_ba.capture"):
+            current = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(current)
+            cuda_graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._stream):
+                if not self._warm:
+                    # warm up on the capture stream once: cuBLAS creates
+                    # its handle and workspace for a stream lazily
+                    graph.iteration(commit=False)
+                # capture_begin/end, not the torch.cuda.graph context: that
+                # also synchronizes the device, collects garbage and
+                # empties the allocator's cache (~0.1 s a capture in a
+                # running System)
+                cuda_graph.capture_begin(pool=self._pool,
+                                         capture_error_mode="thread_local")
+                try:
+                    graph.flags = graph.iteration(commit=True)
+                finally:
+                    cuda_graph.capture_end()
+            current.wait_stream(self._stream)
+            graph.graph = cuda_graph
+            self._warm = True
 
 
 def _body_states(kfs: List[KeyFrame], rig: Rig) -> KFStates:
@@ -362,16 +616,17 @@ def _write_back_points(mps: List[MapPoint], pts: np.ndarray) -> None:
 
 def local_bundle_adjustment(kf: KeyFrame, wmap: Map, iters: int = 10,
                             abort_check=None, map_lock=None, device=None,
-                            pose_cg_iters=None, backtrack=None
-                            ) -> Optional[dict]:
+                            pose_cg_iters=None, backtrack=None,
+                            replay=None) -> Optional[dict]:
     """Visual local BA (OptimizerLBA.cpp:35-329). abort_check: polled
     between GN chunks (the reference's force-stop flag, :112-113).
     map_lock: held around the host gather and apply phases only, so the
     device solve of a threaded local mapper overlaps tracking. If the map's
     transform_epoch moves mid-solve (IMU init / loop correction rescaled the
-    world) the write-back is dropped entirely. Returns the solve's summary
-    (_summary), or None where there was nothing to solve or the write-back
-    was dropped."""
+    world) the write-back is dropped entirely. replay: a LocalBAReplay on
+    `device` (the local mapper's), which replays the solve where it fits
+    (_padded_solve). Returns the solve's summary (_summary), or None where
+    there was nothing to solve or the write-back was dropped."""
     device = resolve_device(device)
     guard = map_lock if map_lock is not None else nullcontext()
     rig = wmap.rig
@@ -416,7 +671,8 @@ def local_bundle_adjustment(kf: KeyFrame, wmap: Map, iters: int = 10,
     with profiler.timer("lba.solve"):
         st, pts, info = _padded_solve(states, points, prob, kf_dof,
                                       np.ones(len(mps), bool), rig, opts,
-                                      device, abort_check=abort_check)
+                                      device, abort_check=abort_check,
+                                      replay=replay)
     with profiler.timer("lba.apply"):
         # one transfer for everything the host post-pass reads, fetched
         # outside the map lock: it is the long device wait
@@ -438,11 +694,12 @@ def local_bundle_adjustment(kf: KeyFrame, wmap: Map, iters: int = 10,
 def local_inertial_ba(kf: KeyFrame, wmap: Map, b_large: bool = False,
                       b_rec_init: bool = False, iters: int = 10,
                       abort_check=None, map_lock=None, device=None,
-                      pose_cg_iters=None, backtrack=None) -> Optional[dict]:
+                      pose_cg_iters=None, backtrack=None,
+                      replay=None) -> Optional[dict]:
     """Visual-inertial local BA (OptimizerLBA.cpp:354-846). map_lock: see
     local_bundle_adjustment - gather/apply locked, device solve unlocked,
-    write-back dropped on a mid-solve whole-map transform. Returns as
-    local_bundle_adjustment does."""
+    write-back dropped on a mid-solve whole-map transform; replay as
+    there. Returns as local_bundle_adjustment does."""
     device = resolve_device(device)
     guard = map_lock if map_lock is not None else nullcontext()
     rig = wmap.rig
@@ -507,7 +764,8 @@ def local_inertial_ba(kf: KeyFrame, wmap: Map, b_large: bool = False,
     with profiler.timer("liba.solve"):
         st, pts, info = _padded_solve(states, points, prob, kf_dof,
                                       np.ones(len(mps), bool), rig, opts,
-                                      device, abort_check=abort_check)
+                                      device, abort_check=abort_check,
+                                      replay=replay)
     with profiler.timer("liba.apply"):
         *st_np, pts_np, chi2, depth, chi2s = _fetch(
             *st, pts, info["obs_chi2"], info["obs_depth"], _chi2_pair(info))

@@ -32,13 +32,16 @@ Optimizer*.cpp):
     its "dp" axis.
 
 The reference's TPU workarounds are not ported: gathers are `t[idx]` and
-scatters `index_add_` (no one-hot MXU products), problems are not padded to
-shape buckets, and there is no slot-major or kf-major observation layout
-(the implicit matvecs gather and `index_add_` in the caller's row order).
+scatters `index_add_` (no one-hot MXU products), and there is no slot-major
+or kf-major observation layout (the implicit matvecs gather and
+`index_add_` in the caller's row order). solve_ba solves a problem at its
+own size; estimator.ba.LocalBAReplay pads local BAs to the reference's
+shape buckets for its CUDA graphs.
 The LM loop runs eagerly: each GN iteration reads one device scalar pair
 (the exit test), the backtracking branch one more, and the reduced-system
 PCG checks its exit every PCG_CHECK iterations; `info["host_syncs"]` counts
-them.
+them. _lm_iteration(sync_free=True) is the iteration that reads nothing
+(estimator.ba.LocalBAReplay's CUDA graphs hold it).
 """
 
 from __future__ import annotations
@@ -715,10 +718,11 @@ def _chi2_only(states, points, prob, cam, Rcb, tcb, opts):
     return total
 
 
-def _pcg(S_mv, d_inv, rhs, iters: int, syncs: list):
+def _pcg(S_mv, d_inv, rhs, iters: int, syncs: list, poll: bool = True):
     """Jacobi-preconditioned CG on the damped SPD reduced system: the
     operator `S_mv` (x -> S x), the preconditioner the inverse diagonal
-    `d_inv`; up to `iters` iterations, exit at 1e-6 relative residual."""
+    `d_inv`; up to `iters` iterations, exit at 1e-6 relative residual
+    (read on the host every PCG_CHECK iterations where `poll`)."""
     x = torch.zeros_like(rhs)
     r = rhs
     z = r * d_inv
@@ -727,7 +731,7 @@ def _pcg(S_mv, d_inv, rhs, iters: int, syncs: list):
     thresh = 1e-12 * torch.dot(r, r)
     active = torch.ones((), dtype=torch.bool, device=rhs.device)
     for it in range(iters):
-        if it and it % PCG_CHECK == 0:
+        if poll and it and it % PCG_CHECK == 0:
             syncs[0] += 1
             if not bool(active):
                 break
@@ -771,9 +775,9 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
 
     info: chi2_hist (MAX_HIST,) for diagnostics, final_chi2, the final
     damping `lam` (chunked callers resume by passing it back as
-    opts.lambda0, ba._padded_solve), iters_run, the final per-observation
-    chi2 and depth for the callers' outlier classification, and host_syncs
-    (device scalars the host read).
+    opts.lambda0, ba._padded_solve), iters_run, `accepted` (one bool an
+    iteration), the final per-observation chi2 and depth for the callers'
+    outlier classification, and host_syncs (device scalars the host read).
 
     implicit: solve the reduced pose system matrix-free (module docstring);
     the same system as the dense fold to round-off. It takes the PCG only:
@@ -781,12 +785,8 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
     mesh: a parallel.Mesh whose lead device holds the tensors; every
     residual family's length a multiple of mesh.size (solve_ba_sharded
     pads them)."""
-    n = states.R.shape[0]
-    m = points.shape[0]
-    n15 = n * DOF
-    dtype, dev = points.dtype, points.device
-    pose_cg = resolve_pose_cg(opts.pose_cg_iters, dev)
-    if implicit and pose_cg <= 0:
+    dev = points.device
+    if implicit and resolve_pose_cg(opts.pose_cg_iters, dev) <= 0:
         raise ValueError("solve_ba(implicit=True) solves the reduced system "
                          "by PCG only: there is no Cholesky on an implicit "
                          "operator (pose_cg_iters resolved to 0)")
@@ -798,16 +798,112 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
         profiler.count_device("solve_ba_implicit", points)
     if mesh is not None:
         profiler.count_device("solve_ba_sharded", points)
+    syncs = [0]
+    solve_iter, shards = _lm_iteration(states, points, prob, kf_dof, mp_free,
+                                       Rcb, tcb, cam, opts, implicit, mesh,
+                                       syncs)
+    hist = points.new_zeros(MAX_HIST)
+    # states, points, damping, last accepted chi2
+    carry = [states, points,
+             torch.as_tensor(opts.lambda0, dtype=points.dtype, device=dev),
+             torch.full((), torch.inf, dtype=points.dtype, device=dev)]
+
+    def step(it):
+        st, pts, lam, last = carry
+        st, pts, lam, chi2_acc, chi2_pre = solve_iter(st, pts, lam)
+        hist[min(it, MAX_HIST - 1)] = chi2_pre
+        syncs[0] += 1
+        carry[:] = st, pts, lam, chi2_acc
+        return _exit_test(chi2_acc, last, opts.tol).tolist()
+
+    it, accepts = _lm_loop(step, opts)
+    st, pts, lam, last = carry
+    # each shard's rows in shard order
+    obs = [_obs_residuals(_on(st, d), pts.to(d), p, cam, R_, t_)
+           for d, p, R_, t_, _, _ in shards]
+    return st, pts, _finish(it, accepts, hist, last, lam,
+                            torch.cat([c.to(dev) for c, _ in obs]),
+                            torch.cat([z.to(dev) for _, z in obs]), syncs[0])
+
+
+def _finish(it: int, accepts: list, hist, last, lam, obs_chi2, obs_depth,
+            host_syncs: int) -> dict:
+    """solve_ba's info after `it` iterations: hist the chi2 history,
+    `last` the final accepted chi2, `lam` the final damping, obs_chi2 and
+    obs_depth the final per-observation chi2 and depth (for the callers'
+    outlier classification)."""
+    # unexecuted slots hold the final accepted chi2
+    chi2_hist = torch.where(torch.arange(MAX_HIST, device=hist.device) < it,
+                            hist, last)
+    return dict(chi2_hist=chi2_hist, final_chi2=last, lam=lam, iters_run=it,
+                accepted=accepts, obs_chi2=obs_chi2, obs_depth=obs_depth,
+                host_syncs=host_syncs)
+
+
+def _lm_loop(step, opts: BAOptions):
+    """The LM loop's host side: step(it) runs iteration `it` and returns
+    its [accepted, small gain] (_exit_test) read on the host; the loop ends
+    after opts.iters iterations, two accepted small gains in a row, or 16
+    rejections in a row (with opts.tol > 0). Returns (iterations run, the
+    accepted flags)."""
+    it = stall = rej = 0
+    accepts = []
+    rej_cap = 16 if opts.tol > 0 else opts.iters + 1
+    while it < opts.iters and stall < 2 and rej < rej_cap:
+        accepted, small = step(it)
+        stall = (stall + 1 if small else 0) if accepted else stall
+        rej = 0 if accepted else rej + 1
+        accepts.append(accepted)
+        it += 1
+    return it, accepts
+
+
+def _exit_test(chi2_acc, last, tol: float):
+    """[accepted, small gain] of an iteration as the LM loop reads them:
+    the accepted chi2 against the previous one."""
+    rel_gain = (last - chi2_acc) / torch.clamp(chi2_acc, min=1e-20)
+    return torch.stack([chi2_acc < last, rel_gain < tol])
+
+
+def _obs_residuals(st: KFStates, pts, prob: BAProblem, cam, Rcb, tcb):
+    """(chi2, depth) of each reprojection row of prob at (st, pts)."""
+    r, depth, _, _ = _reproj_batch(cam, Rcb, tcb, st.R[prob.r_kf],
+                                   st.t[prob.r_kf], pts[prob.r_mp],
+                                   prob.r_uv, want_jac=False)
+    return torch.sum(r * r, dim=1), depth
+
+
+def _lm_iteration(states: KFStates, points, prob: BAProblem, kf_dof,
+                  mp_free, Rcb, tcb, cam: CameraModel, opts: BAOptions,
+                  implicit: bool, mesh, syncs: list,
+                  sync_free: bool = False):
+    """solve_ba's damped-GN iteration on the problem of these shapes:
+    (solve_iter, shards). solve_iter(states, points, lam) returns (states',
+    points', lam', the accepted chi2, the chi2 at the linearization point);
+    host reads add to syncs[0].
+
+    sync_free: the iteration reads nothing on the host, so a CUDA graph
+    can hold it (ba.LocalBAReplay captures this function and the
+    iteration). The backtracking tries at alpha = 1/4 and 1/16 are made on
+    every iteration and picked on the device where the full step is
+    rejected, and the reduced-system PCG runs all its iterations without
+    its exit poll (those past convergence are masked no-ops): the values
+    the host-read branch and exit give."""
+    n = states.R.shape[0]
+    m = points.shape[0]
+    n15 = n * DOF
+    dtype, dev = points.dtype, points.device
+    pose_cg = resolve_pose_cg(opts.pose_cg_iters, dev)
     prob = prob._replace(**{k: getattr(prob, k).long() for k in _INDEX_FIELDS})
     kf_dof = kf_dof.to(torch.bool)
     backtrack = resolve_backtrack(opts.backtrack, dev)
     dof_flat = kf_dof.reshape(-1)
     mask_f = dof_flat.to(dtype)
-    keep = dof_flat[:, None] & dof_flat[None, :]
-    fixed_diag = torch.diag(torch.where(dof_flat, 0.0, 1.0).to(dtype))
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eye_n = torch.eye(n15, dtype=dtype, device=dev)
-    syncs = [0]
+    if not implicit:
+        keep = dof_flat[:, None] & dof_flat[None, :]
+        fixed_diag = torch.diag(torch.where(dof_flat, 0.0, 1.0).to(dtype))
+        eye_n = torch.eye(n15, dtype=dtype, device=dev)
 
     # the shards: one on the tensors' device without a mesh; the per-shard
     # constants are copies on the shard's device (no copy on the lead's)
@@ -909,8 +1005,9 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
         if backtrack:
             # a rejected full step is retried along the same direction at
             # alpha = 1/4 and 1/16 before lambda grows
-            syncs[0] += 1
-            if not bool(full_ok):
+            if not sync_free:
+                syncs[0] += 1
+            if sync_free or not bool(full_ok):
                 tries = []
                 for alpha in (0.25, 0.0625):
                     st_a = states_c.retract(alpha * dx)
@@ -918,8 +1015,12 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
                     tries.append((st_a, pts_a, chi2_at(st_a, pts_a)))
                 (st2, pts2, c2), (st3, pts3, c3) = tries
                 pick2 = c2 <= c3
-                cand = (st2.select(pick2, st3),
-                        torch.where(pick2, pts2, pts3), torch.minimum(c2, c3))
+                tried = (st2.select(pick2, st3),
+                         torch.where(pick2, pts2, pts3), torch.minimum(c2, c3))
+                cand = tried if not sync_free else (
+                    new_states.select(full_ok, tried[0]),
+                    torch.where(full_ok, new_points, tried[1]),
+                    torch.where(full_ok, new_chi2, tried[2]))
         cand_states, cand_points, cand_chi2 = cand
         accept = cand_chi2 < chi2
         # full-step accept halves lambda; a backtracked accept keeps it;
@@ -952,7 +1053,8 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
         S = torch.where(keep, S, 0.0) + fixed_diag
         if pose_cg > 0:
             d_inv = 1.0 / torch.clamp(torch.diagonal(S), min=1e-12)
-            return -_pcg(lambda x: S @ x, d_inv, rhs, pose_cg, syncs)
+            return -_pcg(lambda x: S @ x, d_inv, rhs, pose_cg, syncs,
+                         poll=not sync_free)
         L, info = torch.linalg.cholesky_ex(S)
         sol = torch.cholesky_solve(rhs[:, None], L)[:, 0]
         # a failed factorization gives NaN, as the reference's does: the
@@ -1005,39 +1107,7 @@ def solve_ba(states: KFStates, points: torch.Tensor, prob: BAProblem,
             parts.append(dg.new_zeros(n, 6).index_add_(0, r_kf, dg))
         dS = torch.diagonal(Hpp) + lam - pad15(psum(parts))
         d_inv = 1.0 / torch.clamp(torch.where(dof_flat, dS, 1.0), min=1e-12)
-        return -_pcg(S_mv, d_inv, rhs, pose_cg, syncs), W_x
+        return -_pcg(S_mv, d_inv, rhs, pose_cg, syncs,
+                     poll=not sync_free), W_x
 
-    lam = torch.as_tensor(opts.lambda0, dtype=dtype, device=dev)
-    last = torch.full((), torch.inf, dtype=dtype, device=dev)
-    hist = points.new_zeros(MAX_HIST)
-    st, pts = states, points
-    it = stall = rej = 0
-    rej_cap = 16 if opts.tol > 0 else opts.iters + 1
-    while it < opts.iters and stall < 2 and rej < rej_cap:
-        st, pts, lam, chi2_acc, chi2_pre = solve_iter(st, pts, lam)
-        hist[min(it, MAX_HIST - 1)] = chi2_pre
-        rel_gain = (last - chi2_acc) / torch.clamp(chi2_acc, min=1e-20)
-        accepted, small = torch.stack([chi2_acc < last,
-                                       rel_gain < opts.tol]).tolist()
-        syncs[0] += 1
-        stall = (stall + 1 if small else 0) if accepted else stall
-        rej = 0 if accepted else rej + 1
-        last = chi2_acc
-        it += 1
-    # unexecuted slots hold the final accepted chi2
-    chi2_hist = torch.where(torch.arange(MAX_HIST, device=dev) < it, hist,
-                            last)
-
-    # final per-observation chi2 + depth for outlier classification, each
-    # shard's rows in shard order
-    obs_chi2, obs_depth = [], []
-    for d, p, R_, t_, _, _ in shards:
-        st_d, pts_d = _on(st, d), pts.to(d)
-        r_f, depth, _, _ = _reproj_batch(
-            cam, R_, t_, st_d.R[p.r_kf], st_d.t[p.r_kf], pts_d[p.r_mp],
-            p.r_uv, want_jac=False)
-        obs_chi2.append(torch.sum(r_f * r_f, dim=1).to(dev))
-        obs_depth.append(depth.to(dev))
-    return st, pts, dict(chi2_hist=chi2_hist, final_chi2=last, lam=lam,
-                         iters_run=it, obs_chi2=torch.cat(obs_chi2),
-                         obs_depth=torch.cat(obs_depth), host_syncs=syncs[0])
+    return solve_iter, shards

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from ..device import StaticBuffers
 from ..geometry import so3
 from ..geometry.cameras import CameraModel
 from ..utils import profiler
@@ -382,17 +383,9 @@ class PoseInertialReplay:
                   + [(3, 3), (3,), (3,), (3,), (3,), (DOF, DOF)]   # prior
                   + [(C, 3), (C, 2), (3, 3), (3,)]                 # X uv Rcb tcb
                   + [(C,), (C,), ()])               # valid close prior_valid
-        sizes = [int(np.prod(s)) for s in shapes]
-        self._pinned = torch.empty(sum(sizes), dtype=torch.float32,
-                                   pin_memory=True)
-        self._flat = torch.empty(sum(sizes), dtype=torch.float32,
-                                 device=self.device)
-        host = self._pinned.numpy()
-        self._host, self._dev, k = [], [], 0
-        for shape, size in zip(shapes, sizes):
-            self._host.append(host[k:k + size].reshape(shape))
-            self._dev.append(self._flat[k:k + size].view(shape))
-            k += size
+        self._buf = StaticBuffers([(s, torch.float32) for s in shapes],
+                                  self.device)
+        self._host, self._dev = self._buf.host, self._buf.dev
         self._sq_prior = torch.empty((DOF, DOF), dtype=torch.float32,
                                      device=self.device)
         self._pool = torch.cuda.graph_pool_handle()
@@ -437,7 +430,7 @@ class PoseInertialReplay:
         X, uv, valid and close n <= capacity rows. The outputs are the
         graph's buffers, valid until the next call; inlier has `capacity`
         rows."""
-        profiler.count_device("pose_inertial_optimization", self._flat)
+        profiler.count_device("pose_inertial_optimization", self._dev[0])
         X, uv, valid, close = pad_observations(X, uv, valid, close,
                                                self.capacity)
         for dst, a in zip(self._host, [*curr, *prev, *preint, *prior, X, uv,
@@ -446,7 +439,7 @@ class PoseInertialReplay:
         with torch.cuda.device(self.device):
             # the eigh below waits for this copy, so the next call may
             # refill the pinned buffer
-            self._flat.copy_(self._pinned, non_blocking=True)
+            self._buf.upload()
             self._sq_prior.copy_(_prior_sqrt(self._prior()))
             key = (bool(fix_prev), bool(rec_init))
             if key not in self._graphs:

@@ -26,7 +26,8 @@ from typing import List, Optional
 import numpy as np
 
 from ..device import resolve_device
-from ..estimator.ba import local_bundle_adjustment, local_inertial_ba
+from ..estimator.ba import (LocalBAReplay, local_bundle_adjustment,
+                            local_inertial_ba)
 from ..matching import Matcher
 from ..worldmap import KeyFrame, Map
 
@@ -35,6 +36,9 @@ class LocalMapping:
     def __init__(self, wmap: Map, loop_closer=None, tracking=None,
                  threaded: bool = False, device=None):
         self.device = resolve_device(device)
+        # on CUDA the local BAs replay their LM iterations from CUDA graphs
+        self.ba_replay = (LocalBAReplay(self.device)
+                          if self.device.type == "cuda" else None)
         self.map = wmap
         self.loop_closer = loop_closer
         self.tracking = tracking
@@ -270,11 +274,13 @@ class LocalMapping:
                         local_inertial_ba(kf, self.map, b_large=b_large,
                                           abort_check=abort,
                                           map_lock=ba_lock,
-                                          device=self.device)
+                                          device=self.device,
+                                          replay=self.ba_replay)
                     else:
                         local_bundle_adjustment(
                             kf, self.map, abort_check=abort,
-                            map_lock=ba_lock, device=self.device)
+                            map_lock=ba_lock, device=self.device,
+                            replay=self.ba_replay)
             profiler.count("keyframes")
             if self.loop_closer is not None:
                 with lock:

@@ -9,6 +9,9 @@ make_vi_problem's visual-inertial problem with colines, links and priors.
 Both packages get the same float32 numpy inputs. The JAX solve is jitted
 with BAOptions as a pytree, so its kernels reach it as codes."""
 
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -417,3 +420,149 @@ def test_solver_defaults_follow_the_device():
     assert P.resolve_backtrack(None, "cuda") is True
     assert P.resolve_backtrack(None, "cpu") is False
     assert P.resolve_backtrack(True, "cpu") is True
+
+
+# ---------------------------------------------------------------------------
+# what estimator.ba.LocalBAReplay's CUDA graphs hold: a problem padded to
+# its bucket, and the iteration that reads nothing on the host
+# (_lm_iteration with sync_free)
+# ---------------------------------------------------------------------------
+
+def port_vi_arrays(dtype, noise=0.02):
+    """make_vi_problem's 5-KF problem from the port's copy of it (the
+    same numbers from the seed) as host arrays, floats in `dtype`: (cam,
+    states, points, prob, kf_dof, mp_free)."""
+    from ppg_slam_tpu_torch.parallel.sharded_ba import \
+        make_vi_problem as port_make_vi_problem
+
+    cam, *tensors = port_make_vi_problem(n_kf=5, n_mp=48, n_obs=160,
+                                         n_col=12, seed=3, noise=noise,
+                                         device="cpu")
+
+    def host(x):
+        a = x.numpy()
+        return a.astype(dtype) if a.dtype == np.float32 else a
+
+    states, points, prob, kf_dof, mp_free = tensors
+    return (cam, P.KFStates(*(host(x) for x in states)), host(points),
+            P.BAProblem(*(host(x) for x in prob)), host(kf_dof),
+            host(mp_free))
+
+
+def solve_host(cam, states, points, prob, kf_dof, mp_free, opts):
+    """solve_ba on host arrays; (states, points, info) as numpy/ints."""
+    dt = torch.from_numpy(points).dtype
+    eye, z3 = torch.eye(3, dtype=dt), torch.zeros(3, dtype=dt)
+    st, pts, info = P.solve_ba(
+        P.KFStates(*(_t(x) for x in states)), _t(points),
+        P.BAProblem(*(_t(x) for x in prob)), _t(kf_dof), _t(mp_free), eye,
+        z3, cam, P.BAOptions(**opts))
+    return [x.numpy() for x in st], pts.numpy(), info
+
+
+def replay_host(cam, states, points, prob, kf_dof, mp_free, opts):
+    """A LocalBAReplay bucket's solve (ba._IterationGraph) of host arrays
+    on the CPU, its CUDA graph stood in for by the iteration it captures,
+    run eagerly at each replay: (states, points, info) at the true sizes."""
+    from ppg_slam_tpu_torch.estimator import ba as B
+
+    o = P.BAOptions(**opts)
+    sizes = B.bucket_sizes(len(kf_dof), len(points), prob)
+    g = B._IterationGraph(
+        (sizes, False, cam, dataclasses.replace(o, iters=0, lambda0=0.0)),
+        "cpu")
+    g.fill(states, points, prob, kf_dof, mp_free,
+           types.SimpleNamespace(Rcb=np.eye(3), tcb=np.zeros(3)))
+
+    class Graph:
+        def replay(self):
+            g.flags = g.iteration(commit=True)
+
+    g.graph = Graph()
+    st, pts, info = g.run(o)
+    return [x.numpy() for x in st], pts.numpy(), info
+
+
+# padded-*: float64, so that what is compared is the padding alone. In
+# float32 this problem's weak modes carry summation-order round-off far:
+# merely permuting its observation rows moves the points by 1.3e-5 of
+# their largest coordinate after one iteration and 2.4e-4 after six (CPU),
+# and the padded solve lies within the same. Measured in float64: 3.1e-11
+# (Cholesky) and 3.5e-9 (PCG(64)); held to 1e-5.
+REPLAY_CASES = {
+    "padded-pcg": dict(dtype=np.float64, pad=True, opts=dict(
+        iters=10, lambda0=1e-2, pose_cg_iters=64, backtrack=True)),
+    "padded-cholesky": dict(dtype=np.float64, pad=True, opts=dict(
+        iters=10, lambda0=1e-2, pose_cg_iters=0, backtrack=False)),
+    # at noise 0.3 the fifth and sixth full steps are rejected and a
+    # shorter one accepted
+    "branch_free_backtrack": dict(dtype=np.float32, noise=0.3, opts=dict(
+        iters=6, lambda0=1e-2, tol=0.0, pose_cg_iters=0, backtrack=True)),
+    # at this damping the PCG converges before its 64 iterations
+    "poll_free_pcg": dict(dtype=np.float32, opts=dict(
+        iters=6, lambda0=1e4, tol=0.0, pose_cg_iters=64, backtrack=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPLAY_CASES))
+def test_replayed_iteration_matches_solve_ba(case):
+    """make_vi_problem (links, walks, colines, priors) solved as
+    LocalBAReplay runs it, against solve_ba as it runs eagerly. padded-*:
+    solve_ba on the problem padded to the reference's bucket (16 KFs, 512
+    points, invalid rows in every family) against the problem at its own
+    size, within 1e-5 of the largest entry. The rest: the replay's bucket
+    (_IterationGraph: its buffers, the sync-free iteration, the loop and
+    the slicing back) against solve_ba on the same padded inputs, equal:
+    the backtracking tries picked on the device against the host-read
+    branch, the PCG without its exit poll against the polling one. The
+    same iterations and the same accepts and rejects in each."""
+    from ppg_slam_tpu_torch.estimator import ba as B
+
+    c = REPLAY_CASES[case]
+    cam, states, points, prob, kf_dof, mp_free = port_vi_arrays(
+        c["dtype"], c.get("noise", 0.02))
+    n, m = len(kf_dof), len(points)
+    ref = solve_host(cam, states, points, prob, kf_dof, mp_free, c["opts"])
+    if c.get("pad"):
+        sizes = B.bucket_sizes(n, m, prob)
+        assert sizes == (16, 512, 4096, 256, 64, 1, 4)
+        padded = B.pad_inputs(states, points, prob, kf_dof, mp_free, sizes)
+        assert not padded[6][n:].any() and not padded[7][m:].any()
+        st, pts, info = solve_host(
+            cam, P.KFStates(*padded[:5]), padded[5],
+            P.BAProblem(*padded[8:]), padded[6], padded[7], c["opts"])
+        got = ([x[:n] for x in st], pts[:m], info)
+        for g, r in zip(got[0] + [got[1]], ref[0] + [ref[1]]):
+            assert np.abs(g - r).max() <= 1e-5 * max(np.abs(r).max(), 1.0)
+        k = len(prob.r_kf)
+        np.testing.assert_allclose(info["obs_chi2"][:k].numpy(),
+                                   ref[2]["obs_chi2"].numpy(), rtol=1e-5,
+                                   atol=1e-8)
+    else:
+        padded = B.pad_inputs(states, points, prob, kf_dof, mp_free,
+                              B.bucket_sizes(n, m, prob))
+        args = (cam, P.KFStates(*padded[:5]), padded[5],
+                P.BAProblem(*padded[8:]), padded[6], padded[7])
+        st, pts, info = solve_host(*args, c["opts"])
+        ref = ([x[:n] for x in st], pts[:m], info)
+        got = replay_host(cam, states, points, prob, kf_dof, mp_free,
+                          c["opts"])
+        for g, r in zip(got[0] + [got[1]], ref[0] + [ref[1]]):
+            np.testing.assert_array_equal(g, r)
+        k = len(prob.r_kf)
+        for key in ("obs_chi2", "obs_depth"):
+            np.testing.assert_array_equal(got[2][key].numpy(),
+                                          ref[2][key][:k].numpy())
+        for key in ("final_chi2", "lam", "chi2_hist"):
+            np.testing.assert_array_equal(got[2][key].numpy(),
+                                          ref[2][key].numpy())
+        assert got[2]["host_syncs"] == got[2]["iters_run"]
+        if c["opts"]["backtrack"]:
+            # the case takes the branch: without it the solve differs
+            plain = solve_host(*args, dict(c["opts"], backtrack=False))
+            assert np.abs(plain[1][:m] - ref[1]).max() > 1e-3
+        else:
+            # the case exits early: fewer than 3 polls an iteration
+            assert ref[2]["host_syncs"] < 4 * ref[2]["iters_run"]
+    assert got[2]["iters_run"] == ref[2]["iters_run"]
+    assert got[2]["accepted"] == ref[2]["accepted"]
